@@ -11,15 +11,17 @@ Phases, in order; any failure exits non-zero:
 3. hold every kernel against its plain PyTorch version on the card, at
    every call site of the main path (MobileNetV2 at 224x224, batch 8),
    on random int8 inputs from a seeded ``torch.Generator``: int8 and f32
-   outputs must be bit-equal. K1 and K2 are held again at an odd batch
-   (3: no M is a multiple of a tile) and, at their largest sites, at
-   batch 128 (many tiles per persistent block);
+   outputs must be bit-equal. All are held again at an odd batch (3: no M
+   is a multiple of a tile, K3 takes its small-batch plans) and, at their
+   largest sites, at batch 128 (many tiles per persistent block; K3's
+   largest and widest blocks under their tall-slab plans). ptxas must
+   report no spills in any kernel;
 4. the main path: full-width MobileNetV2 with random weights
    (``init_params(seed=0, bn_stats="random")``), the flagship DFQ config
    (``prepare``), ``lower_int8`` and ``Int8FusedNet`` on the card, batch 8
    at 224x224: the launch counts must read 11 / 1 / 12 per forward, every
-   K1 launch must have taken the tensor-core variant and the K2 launch
-   the strip variant, and the logits must equal (atol 1e-4, same argmax)
+   K1 and K3 launch must have taken the tensor-core variant and the K2
+   launch the strip variant, and the logits must equal (atol 1e-4, same argmax)
    the same network run with the plain versions on the card;
 5. serving, as a correctness check: 16 single-image requests through
    ``MicroBatcher`` over two batch buckets, each answer equal to its row
@@ -29,8 +31,11 @@ Phases, in order; any failure exits non-zero:
    at its main-path shapes at batch 8 and 128 beside its bound, its plain
    version and a library yardstick (``torch._int_mm`` takes only
    M > 16 and K, N multiples of 8: a K1 site outside that has none, and
-   the script says so), with the per-site table of K1 and K2; the
-   forward at batch 8 and 128.
+   the script says so), with the per-site table of all three; K3 also
+   against a model of its own design's time that splits its work by the
+   unit that does it (GEMMs at the tensor cores' peak, the depthwise row
+   sums at a recorded dp4a rate; per site only, not a bound); the forward
+   at batch 8 and 128.
 
 It prints the ``kernels`` JSON line, then the card line, then as the last
 line ``{"ok": true, "device": {...}}``. Per-site details go to
@@ -61,6 +66,14 @@ _PEAKS = {
     "H100 PCIe": (2.0e12, 1513e12),
     "H100": (3.35e12, 1979e12),  # SXM (HBM3)
 }
+
+
+# dp4a instructions per second of one H100 SXM, lanes counted: 63 per clock
+# and SM (dfq_tpu_torch/tools/pipe_rates.py measured 62-64 at 1,980 MHz on
+# an NVIDIA H100 80GB HBM3 at 700 W) x 132 SMs; each does 4 int8 MACs, of
+# which a 3x3 depthwise row sum uses 3. A recorded rate, below the pipe's
+# nominal 64: it enters fused_block_split_bound_ms only, never bound_ms
+DP4A_PER_S = 63 * 132 * 1.98e9
 
 
 def card_peaks(name: str):
@@ -175,6 +188,21 @@ def work(kernel: str, op, shape, out_bytes: int):
     return px * C + wbytes + px * C2 * out_bytes, 2 * px * (C * E + 9 * E + E * C2)
 
 
+def fused_block_split_bound_ms(op, shape, int8_peak: float) -> float:
+    """A model of this design's time, not a bound of the function and not
+    ``bound_ms``: the two GEMMs' operations at the int8 tensor-core peak
+    plus the depthwise conv as this kernel does it, one dp4a per row of 3
+    taps (3 per expanded value, where 9 MACs fill 2.25), at the dp4a rate
+    that ``DP4A_PER_S`` records from an earlier run (this run does not
+    measure it). It says how far the kernel is from its own units' rates;
+    kernels are ranked against :func:`work`'s ``bound_ms``."""
+    N, H, W, C = shape
+    px = N * H * W
+    gemm_ops = 2 * px * (C * op.E + op.E * op.C2)
+    dw_dp4a = px * op.E * 3
+    return (gemm_ops / int8_peak + dw_dp4a / DP4A_PER_S) * 1e3
+
+
 # the shapes torch._int_mm takes on CUDA
 INT_MM_RULE = "torch._int_mm needs M > 16 and K, N multiples of 8"
 
@@ -265,6 +293,10 @@ def main() -> int:
                   f"{k['spill_loads']} B ld")
     detail["build_s"] = build_s
     detail["ptxas"] = ptxas
+    spilled = [k["kernel"] for kernels in ptxas.values() for k in kernels
+               if k["spill_stores"] or k["spill_loads"]]
+    if spilled or not all(ptxas.values()):
+        raise AssertionError(f"ptxas reports spills in {spilled} (or no report: {ptxas})")
 
     # the main path's network (built once; weights from the seed)
     graph = mobilenet_v2()
@@ -293,19 +325,24 @@ def main() -> int:
             x = x.reshape(-1, shape[-1])
         return x
 
-    # 3. every kernel against its plain version at every main-path site;
-    # K1 and K2 again at an odd batch, and at batch 128 where their inputs
-    # are largest (the two 1.6 M-row K1 sites, the K2 site)
+    # 3. every kernel against its plain version at every main-path site,
+    # again at an odd batch, and at batch 128 where the inputs are largest
+    # (the two 1.6 M-row K1 sites, the K2 site) and for K3's largest and
+    # widest blocks
     max_err = dict.fromkeys(wrappers, 0.0)
-    k12 = [s for s in net.kernel_sites if s[1] != "fused_block_int8"]
+    k1 = [s for s in net.kernel_sites if s[1] == "matmul_int8_requant"]
     shapes1 = site_inputs(graph, 1, SIZE)
 
     def rows(site):  # M of a K1 site at batch 1
         return int(np.prod(shapes1[graph[site[0]].inputs[0]][:-1]))
 
-    big = sorted((s for s in k12 if s[1] == "matmul_int8_requant"), key=rows)[-2:]
-    big += [s for s in k12 if s[1] == "dw3x3_int8_requant"]
-    checks = ([(s, BATCH) for s in net.kernel_sites] + [(s, ODD_BATCH) for s in k12]
+    big = sorted(k1, key=rows)[-2:]
+    big += [s for s in net.kernel_sites if s[1] == "dw3x3_int8_requant"]
+    k3 = [s for s in net.kernel_sites if s[1] == "fused_block_int8"]
+    big += [k3[0], k3[-1]]
+    if [s[0] for s in big[-2:]] != ["features.3.conv.0", "features.17.conv.0"]:
+        raise AssertionError(f"K3's first and last sites are {[s[0] for s in big[-2:]]}")
+    checks = ([(s, BATCH) for s in net.kernel_sites] + [(s, ODD_BATCH) for s in net.kernel_sites]
               + [(s, BIG_BATCH) for s in big])
     for (name, kernel, op), batch in checks:
         wrap, plain = wrappers[kernel]
@@ -324,9 +361,9 @@ def main() -> int:
             raise AssertionError(f"{kernel} at {name} {tuple(x.shape)}: {n_bad} elements "
                                  f"differ from the plain version (max abs {err})")
         del got, want
-    print(f"kernels == plain at all {len(net.kernel_sites)} sites (batch {BATCH}), K1/K2 "
-          f"also at batch {ODD_BATCH} ({len(k12)} sites) and batch {BIG_BATCH} "
-          f"({[s[0] for s in big]}): max abs err {max_err}", flush=True)
+    print(f"kernels == plain at all {len(net.kernel_sites)} sites at batch {BATCH} and at "
+          f"batch {ODD_BATCH}, and at batch {BIG_BATCH} at {[s[0] for s in big]}: "
+          f"max abs err {max_err}", flush=True)
 
     # 4. the main path
     rng = np.random.default_rng(0)
@@ -344,7 +381,8 @@ def main() -> int:
                     "fused_block_int8": 12}:
         raise AssertionError(f"main path launches {launches}")
     if variants != {"matmul_int8_requant": {"mma": 11, "dp4a": 0},
-                    "dw3x3_int8_requant": {"strip": 1, "general": 0}}:
+                    "dw3x3_int8_requant": {"strip": 1, "general": 0},
+                    "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"main path kernel variants {variants}")
     if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
         raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
@@ -386,7 +424,8 @@ def main() -> int:
 
     # 6. times
     rows = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "bytes_ms": 0.0, "ops_ms": 0.0, "has_library": True} for k in wrappers}
+                "bytes_ms": 0.0, "ops_ms": 0.0, "has_library": True}
+            for k in wrappers}
     sites = []
     for batch in (BATCH, BIG_BATCH):
         for name, kernel, op in net.kernel_sites:
@@ -404,12 +443,15 @@ def main() -> int:
                 print(f"no library yardstick at {name} b{batch} {tuple(x.shape)}: "
                       f"{INT_MM_RULE}", flush=True)
             bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
+            split_ms = (max(bytes_ms, fused_block_split_bound_ms(op, tuple(x.shape), int8_peak))
+                        if kernel == "fused_block_int8" else None)
             sites.append({"batch": batch, "node": name, "kernel": kernel,
                           "shape": list(x.shape), "ms": t_k, "device_ms": t_d,
                           "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ld,
                           "bytes": nbytes, "ops": nops,
                           "bound_ms": max(bytes_ms, ops_ms),
-                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                          "split_bound_ms": split_ms})
             if batch == BIG_BATCH:
                 r = rows[kernel]
                 r["ms"] += t_k
@@ -423,16 +465,23 @@ def main() -> int:
                 else:
                     r["library_ms"] += t_l
     detail["sites"] = sites
-    print("K1/K2 per site: batch node shape | ms (host calls) | ms (device, graph replay) "
-          "| bound ms (by) | library ms (host calls / device) | device ms / bound")
+    print("per site: batch node shape | ms (host calls) | ms (device, graph replay) "
+          "| bound ms (by) | library ms (host calls / device) | device ms / bound "
+          "[| K3: split model ms (this design's units at their rates), device ms / it]")
     for s in sites:
-        if s["kernel"] == "fused_block_int8":
-            continue
         lib = ("none" if s["library_ms"] is None
                else f"{s['library_ms']:.4f} / {s['library_device_ms']:.4f}")
         print(f"  b{s['batch']} {s['node']} {tuple(s['shape'])} | {s['ms']:.4f} | "
               f"{s['device_ms']:.4f} | {s['bound_ms']:.4f} ({s['bound_by']}) | {lib} | "
-              f"{s['device_ms'] / s['bound_ms']:.1f}x", flush=True)
+              f"{s['device_ms'] / s['bound_ms']:.1f}x"
+              + ("" if s["split_bound_ms"] is None else
+                 f" | {s['split_bound_ms']:.4f}, {s['device_ms'] / s['split_bound_ms']:.1f}x"),
+              flush=True)
+    for batch in (BATCH, BIG_BATCH):
+        k3_sites = [s for s in sites if s["kernel"] == "fused_block_int8" and s["batch"] == batch]
+        print(f"K3 sum b{batch}: device ms {sum(s['device_ms'] for s in k3_sites):.4f}, bound "
+              f"{sum(s['bound_ms'] for s in k3_sites):.4f}, split model "
+              f"{sum(s['split_bound_ms'] for s in k3_sites):.4f}", flush=True)
     fwd = {}
     for batch in (BATCH, BIG_BATCH):
         xb = torch.from_numpy(np.resize(images, (batch, SIZE, SIZE, 3))).to(DEVICE)

@@ -76,6 +76,71 @@ __device__ __forceinline__ int quant_u8(float f, float r, float zp128, float lo,
   return __float2int_rn(clampf(q, lo, hi)) - 128;
 }
 
+// The same value as quant_u8 on fewer and faster operations, for integer
+// zp128, lo <= hi (all three are integers in [0, 255] held as floats).
+// With v = f * r and R = rint(v): if |R| < 2^23 the sum R + zp128 is exact
+// in f32, so clip(R + zp128, lo, hi) = clip(R, lo - zp128, hi - zp128) +
+// zp128; if |R| >= 2^23 both sides sit on the same bound (R + zp128 keeps
+// R's sign and is far outside [lo, hi]). The bounds L = lo - zp128 and
+// H = hi - zp128 are integers, so the clip moves inside the rounding,
+// clip(rint(v), L, H) = rint(clip(v, L, H)), and |clip(v, L, H)| <= 255, so
+// adding 1.5 * 2^23 rounds it to nearest even exactly as rintf does and
+// leaves the integer in the low mantissa bits. zp128 - 128 is added in the
+// integers. A NaN takes the lower bound in both forms (fmaxf drops it).
+struct QuantU8 {
+  float lo, hi;  // lo - zp128, hi - zp128
+  int add;       // zp128 - 128 less the bit pattern of 1.5 * 2^23
+};
+
+__device__ __forceinline__ QuantU8 quant_u8_bounds(float zp128, float lo, float hi) {
+  QuantU8 b;
+  b.lo = __fsub_rn(lo, zp128);
+  b.hi = __fsub_rn(hi, zp128);
+  b.add = __float2int_rn(zp128) - 128 - 0x4B400000;
+  return b;
+}
+
+__device__ __forceinline__ int quant_u8_clamped(float f, float r, const QuantU8& b) {
+  const float v = clampf(__fmul_rn(f, r), b.lo, b.hi);
+  return __float_as_int(__fadd_rn(v, kRoundMagic)) + b.add;
+}
+
+// quant_u8 once more for the grids whose lower bound is their zero point
+// (lo == zp128: the floor of a ReLU, K3's e and d grids), with one
+// operation on the integer pipe less than quant_u8_clamped, which its
+// callers are bound by. With v = f * r the value is
+// clip(rint(v), 0, H) + zp128 - 128, H = hi - zp128 an integer in [0, 255].
+// - s = sat(f * (r * 2^-8)) is one multiply whose result the hardware
+//   clamps to [0, 1] (a NaN gives 0, the lower bound as in quant_u8).
+//   Scaling by 2^-8 is exact on r and on the rounded product (an underflow
+//   can only happen where |v| < 2^-118, and then both forms give 0), so
+//   s = clip(v, 0, 256) / 256 exactly;
+// - t = fma(s, 256, 1.5 * 2^23) rounds clip(v, 0, 256) to nearest even as
+//   rintf does (256 s is exact inside the fma) and leaves the integer, 0
+//   .. 256, in the low mantissa bits;
+// - the upper clip is an integer minimum against the bits of 1.5 * 2^23 +
+//   H: rint is monotone and H <= 255 < 256, so min(rint(clip(v, 0, 256)),
+//   H) = clip(rint(v), 0, H); the zero point is added in the integers.
+struct QuantRelu {
+  float r256;  // r * 2^-8
+  int top;     // the bit pattern of 1.5 * 2^23 + H
+  int add;     // zp128 - 128 less the bit pattern of 1.5 * 2^23
+};
+
+__device__ __forceinline__ QuantRelu quant_relu_bounds(float r, float zp128, float hi) {
+  QuantRelu b;
+  b.r256 = __fmul_rn(r, 0.00390625f);
+  b.top = 0x4B400000 + __float2int_rn(__fsub_rn(hi, zp128));
+  b.add = __float2int_rn(zp128) - 128 - 0x4B400000;
+  return b;
+}
+
+__device__ __forceinline__ int quant_relu(float f, const QuantRelu& b) {
+  float s;
+  asm("mul.rn.sat.f32 %0, %1, %2;" : "=f"(s) : "f"(f), "f"(b.r256));
+  return min(__float_as_int(__fmaf_rn(s, 256.f, kRoundMagic)), b.top) + b.add;
+}
+
 // Grid-to-grid int8 requant (engine _requant_i8, K3 :452-453):
 // (q - zp) * ratio + (zp' + 128) is one FMA under XLA:CPU, ratio is the
 // host's float64 s/s' rounded once to f32.
@@ -83,6 +148,15 @@ __device__ __forceinline__ int requant(int q, int zp_from, float ratio,
                                        float zp_to128) {
   float r = __fmaf_rn(__int2float_rn(q - zp_from), ratio, zp_to128);
   return __float2int_rn(clampf(rintf(r), 0.f, 255.f)) - 128;
+}
+
+// The same value as requant without rintf and the conversion: the bounds
+// 0 and 255 are integers, so the clip moves inside the rounding, and the
+// clipped value rounds by the add of 1.5 * 2^23.
+__device__ __forceinline__ int requant_clamped(int q, int zp_from, float ratio,
+                                               float zp_to128) {
+  const float r = clampf(__fmaf_rn(__int2float_rn(q - zp_from), ratio, zp_to128), 0.f, 255.f);
+  return __float_as_int(__fadd_rn(r, kRoundMagic)) - (0x4B400000 + 128);
 }
 
 __device__ __forceinline__ int8_t byte_of(uint32_t w, int i) {

@@ -392,6 +392,8 @@ class Int8FusedNet(nn.Module):
         def block(env, done):
             v = env[xname]
             _, H, W, _ = v.q.shape
+            # v.q is a whole, contiguous tensor (16-byte aligned), for which
+            # fused_block_fits answers
             if not kernels.fused_block_fits(H, W, C, E, C2):
                 return unfused(env, done)
             out = run(v.q, op)

@@ -21,9 +21,10 @@ Each kernel has, in this module:
   in :data:`PLAIN_CALLS`);
 - its launch plan, made here in Python and handed to the kernel, where
   the CPU tests reach it: which variant a shape takes (K1: tensor-core
-  ``mma`` or ``dp4a``; K2: ``strip`` or ``general``; counted in
-  :data:`VARIANTS`), tile and shared-memory layout, grid
-  (:func:`matmul_plan`, :func:`dw3x3_plan`, :func:`fused_block_rows`);
+  ``mma`` or ``dp4a``; K2: ``strip`` or ``general``; K3: ``mma`` or
+  ``general``; counted in :data:`VARIANTS`), tile and shared-memory
+  layout, grid (:func:`matmul_plan`, :func:`dw3x3_plan`,
+  :func:`fused_block_plan`);
 - a plain PyTorch version (``*_plain``), device-agnostic and exact: int64
   or float64 integer math, then the same f32 epilogue forms. The CPU
   tests hold it bit-exact against the Pallas kernel in interpret mode,
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -61,7 +63,8 @@ LAUNCHES = {"matmul_int8_requant": 0, "dw3x3_int8_requant": 0, "fused_block_int8
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # launches by kernel variant, which a shape and its alignment alone decide
 VARIANTS = {"matmul_int8_requant": {"mma": 0, "dp4a": 0},
-            "dw3x3_int8_requant": {"strip": 0, "general": 0}}
+            "dw3x3_int8_requant": {"strip": 0, "general": 0},
+            "fused_block_int8": {"mma": 0, "general": 0}}
 _count_lock = threading.Lock()
 
 # the activation clamp of K1/K2 (pallas_int8.py:90-91)
@@ -532,7 +535,8 @@ def dw3x3_int8_requant(x, w, scale, bias, *, zp_in: int, s_out: float, zp_out: i
 
 
 def _fused_block_layout(bh: int, W: int, C: int, E: int) -> Tuple[int, int, int]:
-    """K3's shared memory, laid out here only and passed to the kernel:
+    """The general variant's shared memory, laid out here only and passed
+    to the kernel:
     the staged input rows ``[bh+2][W][C]`` at 0, the expanded tile with
     its halo ``[bh+2][W+2][E]`` at ``off_e``, the depthwise output tile
     ``[bh][W][E]`` at ``off_d``; returns ``(off_e, off_d, total bytes)``."""
@@ -542,20 +546,30 @@ def _fused_block_layout(bh: int, W: int, C: int, E: int) -> Tuple[int, int, int]
 
 
 def fused_block_smem(bh: int, W: int, C: int, E: int) -> int:
-    """Shared memory (bytes) of one K3 thread block of ``bh`` rows."""
+    """Shared memory (bytes) of one thread block of ``bh`` rows of the
+    general variant."""
     return _fused_block_layout(bh, W, C, E)[2]
 
 
+@functools.lru_cache(maxsize=None)
 def fused_block_fits(H: int, W: int, C: int, E: int, C2: int) -> bool:
-    """True when K3 takes the block: channel counts are multiples of 4
-    (one 32-bit word of int8) and a one-row slab fits the shared-memory
-    budget. The engine runs the block unfused otherwise."""
-    return (C % 4 == 0 and E % 4 == 0 and C2 % 4 == 0
-            and fused_block_smem(1, W, C, E) <= SMEM_BUDGET)
+    """True when K3 takes the block (the engine asks on every forward, so
+    the answer is kept): channel counts are multiples of 4
+    (one 32-bit word of int8) and either the tensor-core variant has a
+    plan for it or a one-row slab of the general variant fits the
+    shared-memory budget. The engine runs the block unfused otherwise.
+
+    The answer is for input as the engine gives it: contiguous tensors on
+    16-byte boundaries. A shape that only the tensor-core variant can hold
+    raises a ValueError at the launch when x or out is off that boundary."""
+    if C % 4 or E % 4 or C2 % 4:
+        return False
+    return (fused_block_plan(1, H, W, C, E, C2).variant == "mma"
+            or fused_block_smem(1, W, C, E) <= SMEM_BUDGET)
 
 
 def fused_block_rows(H: int, W: int, C: int, E: int) -> int:
-    """Output rows per thread block: slabs of at most 8 rows (more blocks
+    """Output rows per thread block of the general variant: slabs of at most 8 rows (more blocks
     in flight; the 2 halo rows cost (bh+2)/bh in recomputed expand work),
     evened out over H, then shrunk until the slab fits the budget."""
     n_h = -(-H // 8)
@@ -563,6 +577,202 @@ def fused_block_rows(H: int, W: int, C: int, E: int) -> int:
     while bh > 1 and fused_block_smem(bh, W, C, E) > SMEM_BUDGET:
         bh -= 1
     return bh
+
+
+# the tensor-core variant of csrc/fused_block_int8.cu: the (WM, WN) blocks
+# of m16n8 accumulator tiles a warp can own (its template instances), the
+# warps of a block (its NW; one block an SM, 128 registers a thread), the
+# tallest slab, the pixel tiles of one expand item (its EXP_NT)
+FB_WARP_TILES = ((2, 4), (4, 3), (2, 6))
+FB_WARPS = 16
+FB_MAX_ROWS = 14
+FB_EXPAND_TILES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedBlockPlan:
+    """How one K3 call is launched. ``variant`` is ``"mma"`` (E walked in
+    chunks, tensor-core GEMMs) or ``"general"`` (the whole expanded tile
+    in shared memory, every shape :func:`fused_block_fits` admits); the
+    other fields are the mma variant's but ``bh``, ``off_e``, ``off_d``,
+    ``smem`` and ``grid``, which both have."""
+
+    variant: str
+    bh: int = 0  # output rows per block
+    off_e: int = 0  # shared-memory offsets: e tile, d tile, weight buffers
+    off_d: int = 0
+    smem: int = 0
+    grid: Tuple[int, int] = (0, 0)  # (images x slabs, blocks sharing the columns)
+    ec: int = 0  # channels of E per chunk
+    nk: int = 0  # chunks
+    wx: int = 0  # pixels per staged image row: W rounded up to 8
+    wp: int = 0  # bytes per (row, channel) of the e tile
+    p1: int = 0  # bytes per staged row of K = C (x, w1)
+    p2: int = 0  # bytes per staged row of K = ec (d tile, w2)
+    mt: int = 0  # m16 pixel tiles of a block
+    ntb: int = 0  # n8 column tiles of a block
+    wm: int = 0  # accumulator tiles per warp, along m and n
+    wn: int = 0
+    wgm: int = 0  # warps along m (FB_WARPS / wgm along n)
+    dr: int = 0  # output rows per depthwise item
+    off_t: int = 0  # the table of pixel tiles
+    off_w: int = 0
+    wbuf: int = 0  # bytes of one weight buffer
+    fpitch: int = 0  # floats per pixel of the staged project output
+
+    @property
+    def acc_regs(self) -> int:
+        return 4 * self.wm * self.wn
+
+
+def _fused_block_image_of(ec: int, C: int, E: int, C2: int):
+    p1, p2 = matmul_pitch(C), matmul_pitch(ec)
+    img_c = ec * p1
+    img_w2 = img_c + 36 * ec
+    return ec, -(-E // ec), p1, p2, img_c, img_w2, img_w2 + C2 * p2
+
+
+def fused_block_ec(C: int, E: int, C2: int) -> int:
+    """Channels of E per chunk of the tensor-core variant: 128, 64 or 32
+    (whole m16 tiles that divide the block's 16 warps; a multiple of the
+    MMA's depth of 32). Every chunk costs the block three barriers, so the
+    widest chunk is taken that pads E by at most an eighth (the padded
+    channels are computed like any other) and whose two weight buffers
+    leave 3/10 of the shared memory to the tiles; where none does, the one
+    that pads least among those that leave the room, else 32."""
+    roomy = [ec for ec in (128, 64, 32)
+             if 10 * 2 * _fused_block_image_of(ec, C, E, C2)[-1] <= 7 * SMEM_BUDGET] or [32]
+    padded = {ec: -(-E // ec) * ec for ec in roomy}
+    for ec, ep in padded.items():
+        if 8 * (ep - E) <= E:
+            return ec
+    return min(padded, key=lambda ec: (padded[ec], -ec))
+
+
+def fused_block_image(C: int, E: int, C2: int) -> Tuple[int, int, int, int, int, int, int]:
+    """The chunk image the tensor-core variant copies per chunk, in its
+    shared-memory layout: ``ec`` rows of w1 (``[channel][p1]``, K = C
+    zero-padded), at ``img_c`` nine arrays of ``ec`` 4-byte constants
+    (sc1, b1, zp_c1 * ws1, scd, bd, zp_e * tapsum, and the taps of rows
+    ky = 0, 1, 2 as words ``(t0, t1, t2, 0)``), at ``img_w2`` C2 rows of w2
+    (``[column][p2]``, K = ec). Returns ``(ec, nk, p1, p2, img_c, img_w2,
+    img_stride)``."""
+    return _fused_block_image_of(fused_block_ec(C, E, C2), C, E, C2)
+
+
+def _fused_block_mma_layout(bh: int, mt: int, ntb: int, W: int, C: int, E: int, C2: int):
+    """The tensor-core variant's shared memory: the x slab
+    ``[(bh+2) * wx][p1]`` at 0, the e tile ``[bh+3][ec][wp]`` at ``off_e``,
+    the d tile ``[mt * 16][p2]`` at ``off_d``, the table of pixel tiles
+    (one word per 8 staged pixels, whole expand items) at ``off_t``, two
+    weight buffers of ``wbuf`` bytes at ``off_w``; returns ``(off_e, off_d, off_t, off_w,
+    wbuf, total)``."""
+    ec, _, p1, p2, _, img_w2, _ = fused_block_image(C, E, C2)
+    wx = -(-W // 8) * 8
+    off_e = _align16((bh + 2) * wx * p1)
+    # one spare row of the e tile takes what the table's padding tiles write
+    off_d = off_e + _align16((bh + 3) * ec * (wx + 12))
+    off_t = off_d + _align16(mt * 16 * p2)
+    off_w = off_t + _align16(-(-(bh + 2) * wx // 8 // FB_EXPAND_TILES) * FB_EXPAND_TILES * 4)
+    wbuf = img_w2 + ntb * 8 * p2
+    return off_e, off_d, off_t, off_w, wbuf, off_w + 2 * wbuf
+
+
+def _fused_block_warp_tiles(mt: int, ntb: int):
+    """The smallest (WM, WN) instance and the grid of the block's warps
+    (powers of two along m) that cover ``mt`` x ``ntb`` tiles: ``(wm, wn,
+    wgm)`` or None."""
+    best = None
+    for (wm, wn) in FB_WARP_TILES:
+        wgm = FB_WARPS
+        while wgm >= 1:
+            wgn = FB_WARPS // wgm
+            if wgm * wm >= mt and wgn * wn >= ntb:
+                # fewest registers, then the least idle tile slots
+                key = (wm * wn, wgm * wm * wgn * wn - mt * ntb, -wgm)
+                if best is None or key < best[0]:
+                    best = (key, (wm, wn, wgm))
+            wgm //= 2
+    return None if best is None else best[1]
+
+
+def fused_block_candidate(N: int, H: int, W: int, C: int, E: int, C2: int, bh: int,
+                          csplit: int) -> Optional[FusedBlockPlan]:
+    """The tensor-core variant's plan with slabs of ``bh`` rows and the
+    output columns shared by ``csplit`` blocks, or None where the kernel
+    cannot run it: C or C2 not a multiple of 8, a block without columns,
+    no warp tiling that covers the block, or too much shared memory."""
+    if (N < 1 or C % 8 or C2 % 8 or E % 4 or C < 8 or C2 < 8 or E < 4
+            or not 1 <= bh <= min(H, FB_MAX_ROWS) or csplit < 1):
+        return None
+    ec, nk, p1, p2, _, _, _ = fused_block_image(C, E, C2)
+    wx = -(-W // 8) * 8
+    nt = C2 // 8
+    mt = -(-bh * wx // 16)
+    ntb = -(-nt // csplit)
+    if (csplit - 1) * ntb >= nt:  # the last block would have no column
+        return None
+    tiles = _fused_block_warp_tiles(mt, ntb)
+    if tiles is None:
+        return None
+    wm, wn, wgm = tiles
+    off_e, off_d, off_t, off_w, wbuf, total = _fused_block_mma_layout(bh, mt, ntb, W, C, E, C2)
+    # after the last chunk the project output is staged over all of it:
+    # bh * W pixels of fpitch floats (8 mod 32: conflict-free stores)
+    fpitch = max(0, -(-(ntb * 8 - 8) // 32)) * 32 + 8
+    smem = max(total, _align16(bh * W * fpitch * 4))
+    if smem > SMEM_BUDGET:
+        return None
+    # depthwise items: (channel, strip, run of dr rows); the fewest rounds of
+    # the block's threads times the rows a round walks (2 more are loaded)
+    strips = -(-W // 4)
+    dr = min(range(1, bh + 1),
+             key=lambda d: (-(-ec * strips * -(-bh // d) // (32 * FB_WARPS)) * (d + 2), -d))
+    return FusedBlockPlan(
+        "mma", bh=bh, off_e=off_e, off_d=off_d, smem=smem, grid=(N * -(-H // bh), csplit),
+        ec=ec, nk=nk, wx=wx, wp=wx + 12, p1=p1, p2=p2, mt=mt, ntb=ntb, wm=wm, wn=wn,
+        wgm=wgm, dr=dr, off_t=off_t, off_w=off_w, wbuf=wbuf, fpitch=fpitch)
+
+
+def fused_block_plan(N: int, H: int, W: int, C: int, E: int, C2: int, aligned: bool = True,
+                     sms: int = H100_SMS) -> FusedBlockPlan:
+    """The launch plan of one K3 call; shapes, the batch and the 16-byte
+    alignment of x and out alone decide it, and the variant does not
+    depend on the batch or on ``sms``.
+
+    The tensor-core variant takes C and C2 that are multiples of 8 (E a
+    multiple of 4; it is padded to whole chunks in the packed weights)
+    with aligned x and out, whenever a slab of at least one row fits its
+    tiles (``wx``-pixel rows as m16 tiles over an instance of
+    ``FB_WARP_TILES``) and shared memory. Slabs are at most ``FB_MAX_ROWS``
+    rows, evened out over H; where that leaves a quarter of the SMs or more
+    without a block the slabs are halved (down to 2 rows: each halving
+    recomputes more halo rows of the expand), then the output columns are
+    split over up to 4 blocks, each of which recomputes expand and depthwise."""
+    general = FusedBlockPlan("general")
+    if not aligned or N < 1 or H < 1:
+        return general
+
+    def candidate(bh, csplit):
+        return fused_block_candidate(N, H, W, C, E, C2, bh, csplit)
+
+    def evened(rows):
+        return -(-H // -(-H // rows))
+
+    bh, csplit = evened(min(H, FB_MAX_ROWS)), 1
+    while bh > 1 and candidate(bh, csplit) is None:
+        bh = evened(bh - 1)
+    nt = C2 // 8
+    # more blocks where a quarter of the card or more would stand idle
+    while 4 * N * -(-H // bh) * csplit < 3 * sms:
+        if bh > 2 and candidate(evened(-(-bh // 2)), csplit):
+            bh = evened(-(-bh // 2))
+        elif csplit < 4 and nt % (2 * csplit) == 0 and nt // (2 * csplit) >= 2 \
+                and candidate(bh, 2 * csplit):
+            csplit *= 2
+        else:
+            break
+    return candidate(bh, csplit) or general
 
 
 @dataclasses.dataclass
@@ -580,6 +790,10 @@ class FusedBlock:
     sc2: torch.Tensor
     b2: torch.Tensor
     ws2: torch.Tensor
+    # the tensor-core variant's operands: the chunk images of
+    # fused_block_image(), one after another, and zp_d * ws2
+    wimg: torch.Tensor  # [nk * img_stride] int8
+    zw2: torch.Tensor  # [C2] int32
     C: int
     E: int
     C2: int
@@ -608,7 +822,8 @@ class FusedBlock:
     out_f32: int
     r_o: float
     zp_o: int
-    # launch arguments by input (H, W), all but the pointers x, out and N
+    # launch arguments by (N, H, W, x and out are 16-byte aligned), all but
+    # the pointers x, out
     launch_args: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
@@ -621,7 +836,9 @@ class FusedBlock:
             ("wd", self.wd, torch.int8, (9, E)), ("scd", self.scd, f, (E,)),
             ("bd", self.bd, f, (E,)), ("w2", self.w2, i32, (E // 4, C2)),
             ("sc2", self.sc2, f, (C2,)), ("b2", self.b2, f, (C2,)),
-            ("ws2", self.ws2, i32, (C2,)))
+            ("ws2", self.ws2, i32, (C2,)), ("zw2", self.zw2, i32, (C2,)),
+            ("wimg", self.wimg, torch.int8,
+             (fused_block_image(C, E, C2)[1] * fused_block_image(C, E, C2)[-1],)))
 
 
 def _pack_words(w: torch.Tensor) -> torch.Tensor:
@@ -634,6 +851,45 @@ def _pack_words(w: torch.Tensor) -> torch.Tensor:
 def _unpack_words(words: torch.Tensor) -> torch.Tensor:
     K4, N = words.shape
     return words.contiguous().view(torch.int8).reshape(K4, N, 4).permute(0, 2, 1).reshape(4 * K4, N)
+
+
+def _pack_fused_block_image(w1, sc1, b1, ws1, wd, scd, bd, w2, zp_c1: int,
+                            zp_e: int) -> torch.Tensor:
+    """The chunk images of :func:`fused_block_image` from the JAX-layout
+    CPU operands (``w1 [C, E]``, ``wd [9, E]``, ``w2 [E, C2]`` int8).
+    Channels past E are zeros throughout: zero weights, scales, biases
+    and taps give e = zp_e and d = zp_d, which meet zero rows of w2."""
+    C, E = w1.shape
+    C2 = w2.shape[1]
+    ec, nk, p1, p2, img_c, img_w2, stride = fused_block_image(C, E, C2)
+    Ep = nk * ec
+    i32 = np.int32
+
+    def padded(a, dtype):  # [..., E] -> [..., Ep]
+        out = np.zeros(a.shape[:-1] + (Ep,), dtype)
+        out[..., :E] = a
+        return out
+
+    w1p, wdp, w2p = padded(w1, np.int8), padded(wd, np.int8), np.zeros((Ep, C2), np.int8)
+    w2p[:E] = w2
+    taps = np.zeros((3, Ep, 4), np.int8)  # words (t[3 ky], t[3 ky + 1], t[3 ky + 2], 0)
+    taps[:, :, :3] = wdp.reshape(3, 3, Ep).transpose(0, 2, 1)
+    consts = np.stack([
+        padded(sc1, np.float32).view(i32), padded(b1, np.float32).view(i32),
+        zp_c1 * padded(ws1, i32), padded(scd, np.float32).view(i32),
+        padded(bd, np.float32).view(i32), zp_e * wdp.astype(i32).sum(0),
+        *taps.reshape(3, Ep * 4).view(i32)]).astype(i32)  # [9, Ep]
+    img = np.zeros((nk, stride), np.int8)
+    for k in range(nk):
+        ch = slice(k * ec, (k + 1) * ec)
+        rows1 = np.zeros((ec, p1), np.int8)
+        rows1[:, :C] = w1p[:, ch].T
+        rows2 = np.zeros((C2, p2), np.int8)
+        rows2[:, :ec] = w2p[ch].T
+        img[k, :img_c] = rows1.reshape(-1)
+        img[k, img_c:img_w2] = np.ascontiguousarray(consts[:, ch]).view(np.int8).reshape(-1)
+        img[k, img_w2:] = rows2.reshape(-1)
+    return torch.from_numpy(img.reshape(-1))
 
 
 def _act_q(act_hi: float, grid: Tuple[float, int]) -> int:
@@ -674,6 +930,14 @@ def pack_fused_block(
     s_r, zp_r = (float(res_grid[0]), int(res_grid[1])) if res else (1.0, 0)
     s_p, zp_p = (float(p_grid[0]), int(p_grid[1])) if res else (1.0, 0)
     s_o, zp_o = (float(out_grid[0]), int(out_grid[1])) if out_grid else (1.0, 0)
+
+    def host(t, dtype):
+        return torch.as_tensor(t).detach().cpu().numpy().astype(dtype)
+
+    wimg = _pack_fused_block_image(
+        host(w1, np.int8), host(scale1, np.float32), host(bias1, np.float32),
+        host(wsum1, np.int32), host(wd, np.int8), host(scale_d, np.float32),
+        host(bias_d, np.float32), host(w2, np.int8), zp_c1, zp_e)
     return FusedBlock(
         w1=_pack_words(w1.to(torch.int8)).to(device), sc1=_on(scale1, device, torch.float32),
         b1=_on(bias1, device, torch.float32), ws1=_on(wsum1, device, torch.int32),
@@ -681,6 +945,9 @@ def pack_fused_block(
         bd=_on(bias_d, device, torch.float32),
         w2=_pack_words(w2.to(torch.int8)).to(device), sc2=_on(scale2, device, torch.float32),
         b2=_on(bias2, device, torch.float32), ws2=_on(wsum2, device, torch.int32),
+        wimg=wimg.to(device),
+        # |zp_d| <= 128 and |ws2| <= 128 E: inside int32 for every E < 2^17
+        zw2=(zp_d * _on(wsum2, device, torch.int32)).to(torch.int32).contiguous(),
         C=C, E=E, C2=C2,
         # x -> c1 requant (pallas_int8.py:449-453); ratio is Python's f64 s_x/s_c1
         req_c1=int((s_x, zp_x) != (s_c1, zp_c1)), zp_x=zp_x, ratio_c1=f32(s_x / s_c1),
@@ -733,7 +1000,7 @@ class _FusedBlockArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_void_p) for n in (
             "x", "w1", "sc1", "b1", "ws1", "wd", "scd", "bd", "w2", "sc2", "b2",
-            "ws2", "out")]
+            "ws2", "out", "wimg", "zw2")]
         + [(n, ctypes.c_int) for n in ("N", "H", "W", "C", "E", "C2", "bh")]
         + [(n, ctypes.c_int) for n in ("off_e", "off_d", "smem", "req_c1", "zp_x")]
         + [("ratio_c1", ctypes.c_float), ("zp_c1_128", ctypes.c_float), ("zp_c1", ctypes.c_int)]
@@ -743,6 +1010,9 @@ class _FusedBlockArgs(ctypes.Structure):
         + [(n, ctypes.c_float) for n in (
             "ratio_r", "zp_r_128", "s_r", "c_r", "r_p", "zp_p_128", "s_p", "c_p")]
         + [("out_f32", ctypes.c_int), ("r_o", ctypes.c_float), ("zp_o_128", ctypes.c_float)]
+        + [(n, ctypes.c_int) for n in (
+            "mma", "ec", "nk", "wx", "wp", "p1", "p2", "mt", "ntb", "csplit", "wm", "wn",
+            "wgm", "dr", "off_t", "off_w", "wbuf", "fpitch", "img_c", "img_w2", "img_stride")]
     )
 
 
@@ -771,27 +1041,50 @@ def _fn(name: str):
     return fn
 
 
-def _fused_block_args(op: FusedBlock, H: int, W: int) -> _FusedBlockArgs:
-    """The launch arguments of ``op`` at input size ``H x W`` but the
-    pointers ``x``, ``out`` and the batch ``N``; built once per size."""
-    a = op.launch_args.get((H, W))
+def _fused_block_args(op: FusedBlock, N: int, H: int, W: int,
+                      aligned: bool) -> _FusedBlockArgs:
+    """The launch arguments of ``op`` on ``N`` images of ``H x W`` but the
+    pointers ``x`` and ``out``; built once per (N, H, W, alignment)."""
+    a = op.launch_args.get((N, H, W, aligned))
     if a is not None:
         return a
     if not fused_block_fits(H, W, op.C, op.E, op.C2):
         raise ValueError(f"fused_block_int8: block {(H, W, op.C, op.E, op.C2)} does not fit")
+    # the tensor-core variant quantizes e and d with their zero points as the
+    # lower bounds (an activation floor at 0), as pack_fused_block makes them
+    relu = (op.lo_e == op.zp_e + 128 <= op.hi_e and op.lo_d == op.zp_d + 128 <= op.hi_d)
+    if (not (aligned and relu) and fused_block_smem(1, W, op.C, op.E) > SMEM_BUDGET):
+        raise ValueError(
+            f"fused_block_int8: block {(H, W, op.C, op.E, op.C2)} runs only in the "
+            "tensor-core variant (one row of its whole expanded tile takes "
+            f"{fused_block_smem(1, W, op.C, op.E)} bytes of shared memory, over the "
+            f"{SMEM_BUDGET} of the general variant), which needs x and out on 16-byte "
+            "boundaries and activation floors at the zero points "
+            f"(aligned: {aligned}, floors at the zero points: {relu})")
+    plan = fused_block_plan(N, H, W, op.C, op.E, op.C2, aligned and relu,
+                            _sm_count(op.w1.device))
     a = _FusedBlockArgs()
-    for n in ("w1", "sc1", "b1", "ws1", "wd", "scd", "bd", "w2", "sc2", "b2", "ws2"):
+    for n in ("w1", "sc1", "b1", "ws1", "wd", "scd", "bd", "w2", "sc2", "b2", "ws2", "wimg",
+              "zw2"):
         setattr(a, n, getattr(op, n).data_ptr())
-    a.H, a.W, a.C, a.E, a.C2 = H, W, op.C, op.E, op.C2
-    a.bh = fused_block_rows(H, W, op.C, op.E)
-    a.off_e, a.off_d, a.smem = _fused_block_layout(a.bh, W, op.C, op.E)
+    a.N, a.H, a.W, a.C, a.E, a.C2 = N, H, W, op.C, op.E, op.C2
+    a.mma = int(plan.variant == "mma")
+    if a.mma:
+        for n in ("bh", "off_e", "off_d", "smem", "ec", "nk", "wx", "wp", "p1", "p2", "mt",
+                  "ntb", "wm", "wn", "wgm", "dr", "off_t", "off_w", "wbuf", "fpitch"):
+            setattr(a, n, getattr(plan, n))
+        a.csplit = plan.grid[1]
+        a.img_c, a.img_w2, a.img_stride = fused_block_image(op.C, op.E, op.C2)[4:]
+    else:
+        a.bh = fused_block_rows(H, W, op.C, op.E)
+        a.off_e, a.off_d, a.smem = _fused_block_layout(a.bh, W, op.C, op.E)
     for n in ("req_c1", "zp_x", "ratio_c1", "zp_c1", "r_e", "lo_e", "hi_e", "zp_e",
               "r_d", "lo_d", "hi_d", "zp_d", "res", "req_r", "ratio_r", "s_r", "c_r",
               "r_p", "s_p", "c_p", "out_f32", "r_o"):
         setattr(a, n, getattr(op, n))
     a.zp_c1_128, a.zp_r_128 = float(op.zp_c1 + 128), float(op.zp_r + 128)
     a.zp_p_128, a.zp_o_128 = float(op.zp_p + 128), float(op.zp_o + 128)
-    op.launch_args[(H, W)] = a
+    op.launch_args[(N, H, W, aligned)] = a
     return a
 
 
@@ -810,11 +1103,11 @@ def fused_block_int8_packed(x: torch.Tensor, op: FusedBlock) -> torch.Tensor:
     out = torch.empty((N, H, W, op.C2),
                       dtype=torch.float32 if op.out_f32 else torch.int8, device=x.device)
     # a copy per call: serving threads may launch the same block at once
-    a = _FusedBlockArgs.from_buffer_copy(_fused_block_args(op, H, W))
-    a.x, a.out, a.N = x.data_ptr(), out.data_ptr(), N
+    a = _FusedBlockArgs.from_buffer_copy(_fused_block_args(op, N, H, W, _aligned16(x, out)))
+    a.x, a.out = x.data_ptr(), out.data_ptr()
     err = _fn("dfq_fused_block_int8")(ctypes.byref(a), _stream())
     _raise_on(err, name)
-    _count_launch(name)
+    _count_launch(name, "mma" if a.mma else "general")
     return out
 
 

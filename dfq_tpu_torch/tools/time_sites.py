@@ -1,4 +1,4 @@
-"""Time K1 and K2 at every MobileNetV2 main-path site, for one source tree.
+"""Time K1, K2 and K3 at every MobileNetV2 main-path site, for one source tree.
 
     python3 dfq_tpu_torch/tools/time_sites.py --root TREE --out FILE.json
     python3 dfq_tpu_torch/tools/time_sites.py --summarize A.json B.json ...
@@ -15,9 +15,12 @@ back-to-back calls from the host (median of 5 rounds after a warm-up),
 which reads the host's per-call cost wherever that is the larger, and
 ``device_ms`` from the same calls replayed as one CUDA graph.
 
+The whole forward is timed too, per batch, as ``chip_smoke.py`` times it:
+between CUDA events around 5 forwards, 15 rounds (median, least, most).
+
 ``--summarize`` prints one row per site from several such files, in the
 order given (each file's ``ms / device_ms``), with the sums per batch and
-kernel.
+kernel and the forwards.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import sys
 from pathlib import Path
 
 HERE_ROOT = Path(__file__).resolve().parents[2]
-KERNELS = ("matmul_int8_requant", "dw3x3_int8_requant")
+KERNELS = ("matmul_int8_requant", "dw3x3_int8_requant", "fused_block_int8")
 
 
 def measure(root: Path, batches) -> dict:
@@ -54,13 +57,12 @@ def measure(root: Path, batches) -> dict:
                       correction=True, bits_bias=16)
     net = Int8FusedNet(lower_int8(prepare(graph, params, cfg)), device="cuda")
     wrappers = {"matmul_int8_requant": ck.matmul_int8_requant_packed,
-                "dw3x3_int8_requant": ck.dw3x3_int8_requant_packed}
+                "dw3x3_int8_requant": ck.dw3x3_int8_requant_packed,
+                "fused_block_int8": ck.fused_block_int8_packed}
     gen = torch.Generator(device="cuda").manual_seed(0)
     sites = []
     for batch in batches:
         for name, kernel, op in net.kernel_sites:
-            if kernel not in wrappers:
-                continue
             shape = cs.site_inputs(graph, batch, cs.SIZE)[graph[name].inputs[0]]
             x = torch.randint(-128, 128, shape, generator=gen, device="cuda",
                               dtype=torch.int8)
@@ -70,8 +72,14 @@ def measure(root: Path, batches) -> dict:
             sites.append({"batch": batch, "node": name, "kernel": kernel,
                           "shape": list(x.shape), "ms": cs.time_ms(lambda: wrap(x, op)),
                           "device_ms": cs.graph_ms(lambda: wrap(x, op))})
+    forward = {}
+    for batch in batches:
+        xb = torch.randn((batch, cs.SIZE, cs.SIZE, 3), generator=gen, device="cuda")
+        with torch.no_grad():
+            forward[str(batch)] = [cs.time_ms(lambda: net(xb), reps=5, rounds=1)
+                                   for _ in range(15)]
     return {"root": str(root), "card": cs.nvidia_smi_line(),
-            "kind": torch.cuda.get_device_name(0), "sites": sites}
+            "kind": torch.cuda.get_device_name(0), "sites": sites, "forward_ms": forward}
 
 
 def summarize(files) -> None:
@@ -89,6 +97,11 @@ def summarize(files) -> None:
                      for key in ("ms", "device_ms")] for r in runs]
             print(f"sum b{batch} {kernel}: "
                   + " | ".join(f"{a:.4f} / {b:.4f}" for a, b in sums))
+    for batch in sorted({s["batch"] for s in runs[0]["sites"]}):
+        rounds = [sorted(r.get("forward_ms", {}).get(str(batch), [])) for r in runs]
+        print(f"forward b{batch} ms, median (least - most): " + " | ".join(
+            f"{r[len(r) // 2]:.3f} ({r[0]:.3f} - {r[-1]:.3f})" if r else "none"
+            for r in rounds))
 
 
 def main() -> int:

@@ -8,8 +8,9 @@ K on K1 (its dp4a variant), its tensor-core variant at every main-path
 (K, N) with a ragged last tile and with more tiles than blocks, channel
 counts that are not a multiple of 4 on K2 (its general variant), its
 strip variant with ragged strips and slabs and extreme zero points, f32
-output and both residual requants on K3, and the wrappers' argument
-checks.
+output and both residual requants on K3, both K3 variants at the real
+channel counts of its 7 main-path shape classes on small and ragged
+images, and the wrappers' argument checks.
 """
 
 import numpy as np
@@ -182,6 +183,73 @@ def test_fused_block_kernel_equals_plain(dev, hw, res, x_grid, out_f32):
         out_grid=None if out_f32 else (0.0622, -1), device=dev)
     xd = _t(x, dev)
     _equal(ck.fused_block_int8_packed(xd, op), ck.fused_block_int8_plain(xd, op))
+
+
+# the 7 shape classes of K3 on the MobileNetV2 main path: (C, E, C2)
+_K3_CLASSES = [(24, 144, 24), (32, 192, 32), (64, 384, 64), (64, 384, 96), (96, 576, 96),
+               (160, 960, 160), (160, 960, 320)]
+
+
+@pytest.mark.parametrize("variant", ["mma", "general"])
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("hw", [7, 14, 28, 10, 13])
+@pytest.mark.parametrize("cls", _K3_CLASSES, ids=lambda c: "x".join(map(str, c)))
+def test_fused_block_variants_at_main_path_widths(dev, cls, hw, N, variant):
+    C, E, C2 = cls
+    rng = np.random.default_rng(C + E + C2 + hw + N)
+    res = C == C2
+    # the flags walk through their combinations over the cases
+    req_c1, req_r, out_f32 = bool(hw % 2), bool(N % 3 == 0), bool((hw + C2 // 8) % 3 == 0)
+    x_grid = (0.0412, -9)
+    w1 = rng.integers(-128, 128, (C, E)).astype(np.int8)
+    w2 = rng.integers(-128, 128, (E, C2)).astype(np.int8)
+    op = ck.pack_fused_block(
+        w1, rng.uniform(1e-4, 5e-4, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32), w1.astype(np.int32).sum(0),
+        rng.integers(-128, 128, (9, E)).astype(np.int8),
+        rng.uniform(1e-3, 4e-3, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32),
+        w2, rng.uniform(1e-5, 1e-4, C2).astype(np.float32),
+        rng.normal(0, 0.5, C2).astype(np.float32), w2.astype(np.int32).sum(0),
+        x_grid=x_grid, c1_grid=(0.0377, 4) if req_c1 else x_grid,
+        e_grid=(0.0213, -128 if hw % 2 else -77), d_grid=(0.0531, -128 if N == 1 else 19),
+        act1_hi=3.4e38 if hw != 14 else 6.0, act2_hi=6.0,
+        res_grid=((0.0450, -2) if req_r else x_grid) if res else None,
+        p_grid=(0.0301, 5) if res else None,
+        out_grid=None if out_f32 else (0.0622, -1), device=dev)
+    x = rng.integers(-128, 128, (N, hw, hw, C)).astype(np.int8)
+    if variant == "mma":
+        xd = _t(x, dev)
+    else:  # 4 bytes off a 16-byte boundary: the caller must take the general variant
+        buf = torch.empty(x.size + 4, dtype=torch.int8, device=dev)
+        xd = buf[4:].view(x.shape)
+        xd.copy_(_t(x, dev))
+        assert xd.data_ptr() % 16 == 4
+    ck.reset_counts()
+    got = ck.fused_block_int8_packed(xd, op)
+    assert ck.VARIANTS["fused_block_int8"][variant] == 1
+    _equal(got, ck.fused_block_int8_plain(xd, op))
+
+
+def test_fused_block_variant_follows_the_shape(dev):
+    rng = np.random.default_rng(2)
+    ck.reset_counts()
+    for (C, E, C2), variant in (((24, 144, 32), "mma"), ((12, 72, 12), "general"),
+                                ((24, 144, 20), "general")):
+        w1 = rng.integers(-128, 128, (C, E)).astype(np.int8)
+        w2 = rng.integers(-128, 128, (E, C2)).astype(np.int8)
+        op = ck.pack_fused_block(
+            w1, np.full(E, 3e-4, np.float32), np.zeros(E, np.float32),
+            w1.astype(np.int32).sum(0), rng.integers(-128, 128, (9, E)).astype(np.int8),
+            np.full(E, 2e-3, np.float32), np.zeros(E, np.float32), w2,
+            np.full(C2, 5e-5, np.float32), np.zeros(C2, np.float32),
+            w2.astype(np.int32).sum(0), x_grid=(0.04, -9), c1_grid=(0.04, -9),
+            e_grid=(0.02, -128), d_grid=(0.05, -128), act1_hi=6.0, act2_hi=6.0,
+            out_grid=(0.06, -1), device=dev)
+        xd = _t(rng.integers(-128, 128, (2, 9, 11, C)).astype(np.int8), dev)
+        _equal(ck.fused_block_int8_packed(xd, op), ck.fused_block_int8_plain(xd, op))
+        assert ck.VARIANTS["fused_block_int8"][variant] >= 1
+    assert ck.VARIANTS["fused_block_int8"] == {"mma": 1, "general": 2}
 
 
 def test_wrappers_check_their_arguments(dev):

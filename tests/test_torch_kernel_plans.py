@@ -1,4 +1,4 @@
-"""Host-side plans of the redesigned K1 and K2, and the algebra K2 relies on.
+"""Host-side plans of the redesigned kernels, and the algebra they rely on.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``); what decides how they are launched lives in Python
@@ -13,7 +13,13 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
   layout is aligned and disjoint, the grid covers the work;
 - the way the tensor-core variant feeds ``mma.sync.m16n8k32`` (8-byte
   fragment loads, a permutation of k shared by both operands), emulated
-  lane by lane in numpy against the plain product.
+  lane by lane in numpy against the plain product;
+- K3's ``fused_block_plan`` (variant, chunk width, slabs, column split,
+  warp tiles, shared memory) at the 7 main-path shape classes and beside
+  them, its launch-argument struct against the source, its packed chunk
+  images, its tensor-core variant's algebra emulated block by block in
+  numpy against ``fused_block_int8_plain``, and the epilogue helpers it
+  adds to ``csrc/int8_epilogue.cuh`` over every rounding tie.
 """
 
 import ctypes
@@ -333,12 +339,519 @@ def test_pack_words_roundtrip(shape):
 def test_variant_counts_reset_with_the_launch_counts():
     ck.reset_counts()
     assert ck.VARIANTS == {"matmul_int8_requant": {"mma": 0, "dp4a": 0},
-                           "dw3x3_int8_requant": {"strip": 0, "general": 0}}
+                           "dw3x3_int8_requant": {"strip": 0, "general": 0},
+                           "fused_block_int8": {"mma": 0, "general": 0}}
     ck._count_launch("matmul_int8_requant", "mma")
-    ck._count_launch("fused_block_int8")
+    ck._count_launch("fused_block_int8", "general")
     assert ck.LAUNCHES == {"matmul_int8_requant": 1, "dw3x3_int8_requant": 0,
                            "fused_block_int8": 1}
     assert ck.VARIANTS["matmul_int8_requant"] == {"mma": 1, "dp4a": 0}
+    assert ck.VARIANTS["fused_block_int8"] == {"mma": 0, "general": 1}
     ck.reset_counts()
     assert ck.LAUNCHES["matmul_int8_requant"] == 0
     assert ck.VARIANTS["matmul_int8_requant"]["mma"] == 0
+    assert ck.VARIANTS["fused_block_int8"]["general"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K3: the tensor-core variant's plan, packing and algebra
+
+# MobileNetV2 224x224 main path: the 7 shape classes of K3 as (H = W, C, E, C2)
+K3_SITES = [(56, 24, 144, 24), (28, 32, 192, 32), (14, 64, 384, 64), (14, 64, 384, 96),
+            (14, 96, 576, 96), (7, 160, 960, 160), (7, 160, 960, 320)]
+
+
+def _check_fused_plan(plan, N, H, W, C, E, C2):
+    assert plan.variant == "mma"
+    assert plan.smem <= ck.SMEM_BUDGET
+    # chunks of E, rows padded to 8 pixels, pitches of 32 mod 64 bytes
+    assert plan.ec % 32 == 0 and plan.nk * plan.ec >= E > (plan.nk - 1) * plan.ec
+    assert plan.wx % 8 == 0 and 0 <= plan.wx - W < 8
+    assert plan.wp == plan.wx + 12 and (plan.wp // 4) % 2 == 1
+    assert plan.p1 == ck.matmul_pitch(C) and plan.p2 == ck.matmul_pitch(plan.ec)
+    # the slabs cover every row once
+    assert 1 <= plan.bh <= ck.FB_MAX_ROWS
+    n_h = -(-H // plan.bh)
+    assert (n_h - 1) * plan.bh < H <= n_h * plan.bh
+    assert plan.grid[0] == N * n_h
+    # the blocks of one slab cover every column once
+    csplit = plan.grid[1]
+    assert (csplit - 1) * plan.ntb * 8 < C2 <= csplit * plan.ntb * 8
+    # the warps' tiles cover the block's, inside the register budget
+    assert plan.mt * 16 >= plan.bh * plan.wx
+    assert (plan.wm, plan.wn) in ck.FB_WARP_TILES
+    assert ck.FB_WARPS % plan.wgm == 0
+    assert plan.wgm * plan.wm >= plan.mt
+    assert (ck.FB_WARPS // plan.wgm) * plan.wn >= plan.ntb
+    # accumulators: at most 48 of a thread's 128 registers
+    assert plan.acc_regs == 4 * plan.wm * plan.wn <= 48
+    # shared memory: aligned, disjoint, two weight buffers at the end
+    ec, nk, p1, p2, img_c, img_w2, stride = ck.fused_block_image(C, E, C2)
+    assert (ec, nk) == (plan.ec, plan.nk)
+    assert img_c == ec * p1 and img_w2 == img_c + 36 * ec and stride == img_w2 + C2 * p2
+    for off in (plan.off_e, plan.off_d, plan.off_w, plan.wbuf, img_c, img_w2, stride):
+        assert off % 16 == 0
+    assert plan.off_e >= (plan.bh + 2) * plan.wx * plan.p1
+    assert plan.off_d - plan.off_e >= (plan.bh + 3) * plan.ec * plan.wp
+    assert plan.off_t - plan.off_d >= plan.mt * 16 * plan.p2
+    assert plan.off_t % 16 == 0
+    items = -(-(plan.bh + 2) * plan.wx // 8 // ck.FB_EXPAND_TILES)
+    assert plan.off_w - plan.off_t >= items * ck.FB_EXPAND_TILES * 4
+    # the table's entry holds the e-tile offset in 20 bits, the x tile in 10
+    assert (plan.bh + 3) * plan.ec * plan.wp < 1 << 20 and (plan.bh + 2) * plan.wx // 8 < 1 << 10
+    assert plan.ec in (32, 64, 128)
+    assert plan.wbuf == img_w2 + plan.ntb * 8 * plan.p2
+    # the staged project output lies over all of it after the last chunk
+    assert plan.fpitch % 32 == 8 and plan.fpitch >= plan.ntb * 8
+    staged = plan.bh * W * plan.fpitch * 4
+    assert plan.smem == max(plan.off_w + 2 * plan.wbuf, -(-staged // 16) * 16)
+    assert 1 <= plan.dr <= plan.bh
+
+
+@pytest.mark.parametrize("N", [1, 3, 8, 128])
+@pytest.mark.parametrize("site", K3_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_block_plan_main_path_sites_take_the_mma_variant(site, N):
+    H, C, E, C2 = site
+    plan = ck.fused_block_plan(N, H, H, C, E, C2)
+    _check_fused_plan(plan, N, H, H, C, E, C2)
+    assert ck.fused_block_fits(H, H, C, E, C2)
+    if N == 128:  # the batch alone fills the card: the tallest slabs that fit
+        assert plan.grid[1] == 1 and 4 * plan.grid[0] >= 3 * ck.H100_SMS
+        assert plan.bh == min(H, ck.FB_MAX_ROWS)
+    if N <= 8:  # small batch: shorter slabs or split columns make more blocks
+        big = ck.fused_block_plan(128, H, H, C, E, C2)
+        assert plan.bh <= big.bh and plan.grid[0] * plan.grid[1] * 128 >= big.grid[0] * N
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 10, 24, 144, 24), (1, 13, 13, 32, 192, 64),
+                                   (3, 9, 5, 8, 4, 8), (1, 1, 1, 16, 96, 16),
+                                   (2, 17, 60, 24, 144, 24), (1, 5, 300, 8, 48, 8)])
+def test_fused_block_plan_other_aligned_shapes(shape):
+    N, H, W, C, E, C2 = shape
+    _check_fused_plan(ck.fused_block_plan(N, H, W, C, E, C2), N, H, W, C, E, C2)
+
+
+@pytest.mark.parametrize("shape,aligned", [
+    ((2, 10, 10, 12, 72, 12), True),  # C, C2 multiples of 4 but not of 8
+    ((2, 10, 10, 24, 144, 20), True),
+    ((2, 10, 10, 4, 24, 8), True),
+    ((2, 10, 10, 24, 144, 24), False),  # x or out off its 16-byte boundary
+    ((1, 4, 1100, 8, 48, 8), True),  # one row of pixels is more than a block's tiles
+])
+def test_fused_block_plan_general_variant(shape, aligned):
+    assert ck.fused_block_plan(*shape, aligned=aligned) == ck.FusedBlockPlan("general")
+
+
+def test_fused_block_fits_means_k3_runs_the_block():
+    # either variant: channels that are whole words
+    assert ck.fused_block_fits(10, 10, 12, 72, 12)  # general
+    assert ck.fused_block_fits(10, 10, 24, 144, 24)  # mma
+    assert not ck.fused_block_fits(14, 14, 6, 36, 6)
+    # a shape whose whole-E tile would not fit one row, taken in chunks
+    assert ck.fused_block_smem(1, 56, 320, 1920) > ck.SMEM_BUDGET
+    assert ck.fused_block_fits(56, 56, 320, 1920, 320)
+
+
+@pytest.mark.parametrize("shape", [(n, *s[:1], *s) for s in K3_SITES for n in (1, 8, 128)]
+                         + [(2, 10, 10, 24, 144, 24), (1, 5, 300, 8, 48, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_block_plan_is_a_candidate(shape):
+    """The planner only chooses (slab rows, column split); the plan itself
+    is ``fused_block_candidate``'s, which measurements force directly."""
+    N, H, W, C, E, C2 = shape
+    plan = ck.fused_block_plan(N, H, W, C, E, C2)
+    assert plan == ck.fused_block_candidate(N, H, W, C, E, C2, plan.bh, plan.grid[1])
+
+
+@pytest.mark.parametrize("shape,bh,csplit", [
+    ((8, 56, 56, 24, 144, 24), 4, 4),  # 3 column tiles over 4 blocks: the last has none
+    ((8, 7, 7, 160, 960, 320), 7, 64),
+    ((8, 7, 7, 160, 960, 320), 7, 0),
+    ((8, 7, 7, 160, 960, 320), 0, 1),  # no row
+    ((8, 7, 7, 160, 960, 320), 8, 1),  # taller than the image
+    ((8, 56, 56, 24, 144, 24), 15, 1),  # taller than FB_MAX_ROWS
+    ((8, 10, 10, 12, 72, 12), 2, 1),  # channels not multiples of 8
+    ((1, 4, 1100, 8, 48, 8), 1, 1),  # no warp tiling
+    ((1, 56, 56, 320, 1920, 320), 14, 1),  # neither tiles nor shared memory
+])
+def test_fused_block_candidate_refuses_what_the_kernel_cannot_run(shape, bh, csplit):
+    assert ck.fused_block_candidate(*shape, bh, csplit) is None
+
+
+@pytest.mark.parametrize("shape,bh,csplit", [((8, 56, 56, 24, 144, 24), 4, 3),
+                                             ((8, 7, 7, 160, 960, 320), 7, 4),
+                                             ((128, 14, 14, 96, 576, 96), 2, 2)])
+def test_fused_block_candidate_forced_plans_hold_the_invariants(shape, bh, csplit):
+    plan = ck.fused_block_candidate(*shape, bh, csplit)
+    assert (plan.bh, plan.grid[1]) == (bh, csplit)
+    _check_fused_plan(plan, *shape)
+
+
+@pytest.mark.parametrize("case", ["unaligned", "floor off the zero point"])
+def test_fused_block_args_name_a_shape_only_the_mma_variant_holds(case):
+    """56x56x320->1920: ``fused_block_fits`` says K3 runs it, in chunks.
+    Off a 16-byte boundary (or with an activation floor that is not the
+    zero point) only the general variant is left, whose one-row tile is
+    over the budget: the wrapper says so before it touches the card."""
+    op = _block_op(np.random.default_rng(5), 320, 1920, 320, res=True, req_c1=False,
+                   req_r=False, out_f32=False)
+    assert ck.fused_block_fits(56, 56, 320, 1920, 320)
+    assert ck.fused_block_smem(1, 56, 320, 1920) > ck.SMEM_BUDGET
+    aligned = case != "unaligned"
+    if aligned:
+        op.lo_e -= 1.0
+    with pytest.raises(ValueError, match="runs only in the tensor-core variant"):
+        ck._fused_block_args(op, 1, 56, 56, aligned)
+    assert not op.launch_args
+
+
+def test_fused_block_warp_tiles_match_the_source():
+    """``FB_WARP_TILES``, ``FB_WARPS`` and ``FB_EXPAND_TILES`` against the
+    template instances (``DFQ_LAUNCH``), ``NW`` and ``EXP_NT`` of
+    ``csrc/fused_block_int8.cu``: a plan with another warp tile would be
+    refused by the launcher on the card only."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ck.__file__).resolve().parents[1] / "csrc" / "fused_block_int8.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    instances = [(int(m), int(n)) for m, n in re.findall(r"^\s*DFQ_LAUNCH\((\d+),\s*(\d+)\)",
+                                                          code, re.M)]
+    assert instances and tuple(instances) == ck.FB_WARP_TILES
+    assert [int(v) for v in re.findall(r"constexpr int NW = (\d+);", code)] == [ck.FB_WARPS]
+    assert [int(v) for v in re.findall(r"constexpr int EXP_NT = (\d+);", code)] \
+        == [ck.FB_EXPAND_TILES]
+
+
+def test_fused_block_args_layout_matches_the_source():
+    """``_FusedBlockArgs`` against ``struct FusedBlockArgs`` of
+    ``csrc/fused_block_int8.cu``, field by field: name, order and type."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ck.__file__).resolve().parents[1] / "csrc" / "fused_block_int8.cu").read_text()
+    body = src[src.index("struct FusedBlockArgs {"):]
+    body = body[:body.index("};")]
+    fields = []
+    for line in body.splitlines()[1:]:
+        line = line.split("//")[0].strip().rstrip(";")
+        if not line:
+            continue
+        m = re.match(r"(const\s+)?(\w+)\s*(\*?)\s*(.+)", line)
+        ctype = ctypes.c_void_p if m.group(3) else {"int": ctypes.c_int,
+                                                    "float": ctypes.c_float}[m.group(2)]
+        fields += [(n.strip(), ctype) for n in m.group(4).split(",")]
+    assert [(n, t) for n, t in ck._FusedBlockArgs._fields_] == fields
+    # 15 pointers, then 4-byte fields, no padding but the tail's (to 8 bytes)
+    assert ctypes.sizeof(ck._FusedBlockArgs) == -(-(15 * 8 + (len(fields) - 15) * 4) // 8) * 8
+
+
+def _block_op(rng, C, E, C2, *, res, req_c1, req_r, out_f32, zp_e=-128, zp_d=-128):
+    w1 = rng.integers(-128, 128, (C, E)).astype(np.int8)
+    w2 = rng.integers(-128, 128, (E, C2)).astype(np.int8)
+    x_grid = (0.0412, -9)
+    return ck.pack_fused_block(
+        w1, rng.uniform(1e-4, 5e-4, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32), w1.astype(np.int32).sum(0),
+        rng.integers(-128, 128, (9, E)).astype(np.int8),
+        rng.uniform(1e-3, 4e-3, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32),
+        w2, rng.uniform(1e-5, 1e-4, C2).astype(np.float32),
+        rng.normal(0, 0.5, C2).astype(np.float32), w2.astype(np.int32).sum(0),
+        x_grid=x_grid, c1_grid=(0.0377, 4) if req_c1 else x_grid, e_grid=(0.0213, zp_e),
+        d_grid=(0.0531, zp_d), act1_hi=3.4e38, act2_hi=6.0,
+        res_grid=((0.0450, -2) if req_r else x_grid) if res else None,
+        p_grid=(0.0301, 5) if res else None,
+        out_grid=None if out_f32 else (0.0622, -1), device="cpu")
+
+
+def _fma32(a, b, c):
+    # one rounding of a * b + c: the product of two f32 is exact in f64
+    return (np.asarray(a, np.float64) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _quant_u8_clamped(f, r, zp128, lo, hi):
+    """``quant_u8_clamped`` of ``csrc/int8_epilogue.cuh`` in numpy float32."""
+    b_lo, b_hi = _f32(lo) - _f32(zp128), _f32(hi) - _f32(zp128)
+    add = np.int32(int(zp128) - 128 - 0x4B400000)
+    with np.errstate(over="ignore", invalid="ignore"):
+        v = np.fmin(np.fmax(_f32(_f32(f) * _f32(r)), b_lo), b_hi)
+    return _f32(v + _f32(12582912.0)).view(np.int32) + add
+
+
+def _quant_relu(f, r, zp128, hi):
+    """``quant_relu`` of ``csrc/int8_epilogue.cuh`` in numpy float32: a
+    saturating multiply by r / 256, an FMA with 256 and 1.5 * 2^23, an
+    integer minimum, an integer add."""
+    r256 = _f32(_f32(r) * _f32(2.0 ** -8))
+    assert np.float64(r256) * 256 == np.float64(_f32(r))  # the scaling is exact
+    with np.errstate(over="ignore", invalid="ignore", under="ignore"):
+        prod = _f32(_f32(f) * r256)
+    s = np.where(np.isnan(prod), _f32(0), np.clip(prod, _f32(0), _f32(1)))  # mul.rn.sat.f32
+    t = (s.astype(np.float64) * 256 + 12582912.0).astype(np.float32).view(np.int32)
+    top = np.int32(0x4B400000 + int(hi) - int(zp128))
+    return np.minimum(t, top) + np.int32(int(zp128) - 128 - 0x4B400000)
+
+
+def _requant_clamped(q, zp_from, ratio, zp_to128):
+    r = np.clip(_fma32(_f32(q.astype(np.int32) - zp_from), _f32(ratio), _f32(zp_to128)),
+                _f32(0), _f32(255))
+    return _f32(r + _f32(12582912.0)).view(np.int32) - np.int32(0x4B400000 + 128)
+
+
+def _emulate_fused_block_mma(x, op, plan):
+    """The tensor-core variant of ``csrc/fused_block_int8.cu`` block by
+    block in numpy, from the packed chunk images: the staged x slab with
+    its pitches and padding, the E-chunk loop, the e tile
+    ``[row][channel][wp]`` with its zp_e padding, the strip windows (byte
+    permutes) and 3-tap ``dp4a``, the d tile, the project accumulators
+    over the chunks, and the clamped quantizers."""
+    N, H, W, C = x.shape
+    C2, ec, wx, wp, p1, p2, bh = op.C2, plan.ec, plan.wx, plan.wp, plan.p1, plan.p2, plan.bh
+    _, nk, _, _, img_c, img_w2, stride = ck.fused_block_image(C, op.E, C2)
+    img = op.wimg.numpy().reshape(nk, stride)
+    zw2 = op.zw2.numpy().astype(np.int64)
+    sc2, b2 = op.sc2.numpy(), op.b2.numpy()
+    out = np.zeros((N, H, W, C2), np.float32 if op.out_f32 else np.int8)
+    R, S = bh + 2, -(-W // 4)
+    kp = -(-C // 32) * 32
+    for n in range(N):
+        for r0 in range(0, H, bh):
+            xs = np.zeros((R * wx, p1), np.int8)
+            for r in range(R):
+                h = r0 - 1 + r
+                if 0 <= h < H:
+                    v = x[n, h]
+                    if op.req_c1:
+                        v = _requant_clamped(v, op.zp_x, op.ratio_c1, op.zp_c1 + 128)
+                    xs[r * wx:r * wx + W, :C] = v
+            es = np.full((R, ec, wp), op.zp_e & 0xff, np.uint8)
+            ds = np.zeros((plan.mt * 16, p2), np.int8)
+            acc = np.tile(-zw2, (plan.mt * 16, 1))
+            for k in range(nk):
+                w1s = img[k, :img_c].reshape(ec, p1)
+                consts = img[k, img_c:img_w2].copy().view(np.int32).reshape(9, ec)
+                sc1, b1, scd, bd = (consts[i].view(np.float32) for i in (0, 1, 3, 4))
+                zw1, ztd, taps = consts[2], consts[5], consts[6:9]
+                w2s = img[k, img_w2:].reshape(C2, p2)
+                # expand: [channel, pixel], K padded to the MMA's depth
+                a1 = (w1s[:, :kp].astype(np.int64) @ xs[:, :kp].astype(np.int64).T
+                      - zw1[:, None].astype(np.int64))
+                f1 = _fma32(a1.astype(np.float32), sc1[:, None], b1[:, None])
+                assert op.lo_e == op.zp_e + 128 and op.lo_d == op.zp_d + 128
+                q1 = _quant_relu(f1, op.r_e, op.zp_e + 128, op.hi_e)
+                q1 = q1.reshape(ec, R, wx)
+                for r in range(R):  # rows outside the image keep zp_e; no tile is made
+                    if 0 <= r0 - 1 + r < H:  # pixels W .. wx - 1: values of no meaning
+                        es[r, :, 4:4 + wx] = q1[:, r, :].astype(np.int8).view(np.uint8)
+                # depthwise: words at pixels 4s-4, 4s, 4s+4 -> 4 windows -> dp4a
+                words = es.view("<u4")  # [R][ec][wp / 4]
+                for rr in range(min(bh, H - r0)):
+                    for s in range(S):
+                        v = np.tile(-ztd.astype(np.int64), (4, 1))  # [j][channel]
+                        # pixel W reads as zp_e: byte W % 4 of word 1 + W / 4
+                        keep, put = [0xffffffff] * 2, [0, 0]
+                        if W < wx:
+                            m = 0xff << (8 * (W & 3))
+                            zpe4 = (op.zp_e & 0xff) * 0x01010101
+                            for i in range(2):
+                                if s + i == W // 4:
+                                    keep[i], put[i] = ~m & 0xffffffff, zpe4 & m
+                        for ky in range(3):
+                            w0, w1_, w2_ = (words[rr + ky, :, s + i] for i in range(3))
+                            w1_ = (w1_ & np.uint32(keep[0])) | np.uint32(put[0])
+                            w2_ = (w2_ & np.uint32(keep[1])) | np.uint32(put[1])
+                            win = [_byte_perm(w0, w1_, 0x6543), w1_,
+                                   _byte_perm(w1_, w2_, 0x4321), _byte_perm(w1_, w2_, 0x5432)]
+                            for j in range(4):
+                                v[j] = _dp4a(win[j], taps[ky].view(np.uint32), v[j])
+                        fd = _fma32(v.astype(np.float32), scd[None], bd[None])
+                        qd = _quant_relu(fd, op.r_d, op.zp_d + 128, op.hi_d)
+                        ds[rr * wx + 4 * s:rr * wx + 4 * s + 4, :ec] = qd.astype(np.int8)
+                # project: all ec bytes of K (the padded channels meet zero rows)
+                acc = acc + ds[:, :ec].astype(np.int64) @ w2s[:, :ec].astype(np.int64).T
+            f2 = _fma32(acc.astype(np.float32), sc2[None], b2[None])
+            for p in range(plan.mt * 16):
+                rr, w = divmod(p, wx)
+                h = r0 + rr
+                if rr >= bh or h >= H or w >= W:
+                    continue
+                f = f2[p]
+                if op.res:
+                    q2 = _quant_u8_clamped(f, op.r_p, op.zp_p + 128, 0, 255)
+                    bf = _fma32(_f32(q2), op.s_p, op.c_p)
+                    xq = x[n, h, w].astype(np.int32)
+                    if op.req_r:
+                        xq = _requant_clamped(xq, op.zp_x, op.ratio_r, op.zp_r + 128)
+                    f = _fma32(_f32(xq), op.s_r, op.c_r) + bf
+                out[n, h, w] = f if op.out_f32 else _quant_u8_clamped(
+                    f, op.r_o, op.zp_o + 128, 0, 255).astype(np.int8)
+    return out
+
+
+@pytest.mark.parametrize("flags", [(True, True, True, False), (True, False, False, True),
+                                   (False, True, False, False), (False, False, False, True),
+                                   (True, False, True, True), (True, True, False, False)],
+                         ids=lambda f: "res%d-reqc1%d-reqr%d-f32%d" % tuple(map(int, f)))
+@pytest.mark.parametrize("shape", [(2, 10, 10, 24, 144), (1, 7, 7, 32, 192), (1, 13, 9, 40, 100)])
+def test_fused_block_mma_algebra_equals_plain(shape, flags):
+    """E = 144 and 100 pad to whole chunks with zero channels, C = 24 and
+    40 pad K to 32 and 64, 10 and 13 rows leave ragged last slabs, the
+    first and last slabs have halo rows outside the image."""
+    res, req_c1, req_r, out_f32 = flags
+    N, H, W, C, E = shape
+    rng = np.random.default_rng(sum(shape))
+    C2 = C if res else C + 8
+    op = _block_op(rng, C, E, C2, res=res, req_c1=req_c1, req_r=req_r, out_f32=out_f32,
+                   zp_e=-128 if C == 24 else -77, zp_d=-128 if C == 24 else 19)
+    x = rng.integers(-128, 128, (N, H, W, C)).astype(np.int8)
+    want = ck.fused_block_int8_plain(torch.from_numpy(x), op).numpy()
+    for batch in (N, 128):  # the small-batch plan and the tall-slab plan
+        plan = ck.fused_block_plan(batch, H, W, C, E, C2)
+        assert plan.variant == "mma"
+        got = _emulate_fused_block_mma(x, op, plan)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fused_block_image_pads_e_with_harmless_channels():
+    rng = np.random.default_rng(5)
+    C, E, C2 = 24, 144, 24
+    op = _block_op(rng, C, E, C2, res=False, req_c1=False, req_r=False, out_f32=False)
+    ec, nk, p1, p2, img_c, img_w2, stride = ck.fused_block_image(C, E, C2)
+    assert (ec, nk) == (32, 5) and nk * ec - E == 16
+    last = op.wimg.numpy().reshape(nk, stride)[-1]
+    pad = slice(E - (nk - 1) * ec, ec)  # the padded channels of the last chunk
+    assert not last[:img_c].reshape(ec, p1)[pad].any()
+    assert not last[img_c:img_w2].copy().view(np.int32).reshape(9, ec)[:, pad].any()
+    assert not last[img_w2:].reshape(C2, p2)[:, pad].any()
+    # and the real channels are the operands': w1 rows, w2 columns, taps
+    w1 = ck._unpack_words(op.w1).numpy()
+    w2 = ck._unpack_words(op.w2).numpy()
+    img = op.wimg.numpy().reshape(nk, stride)
+    for k in range(nk):
+        n = min(ec, E - k * ec)
+        np.testing.assert_array_equal(img[k, :img_c].reshape(ec, p1)[:n, :C],
+                                      w1[:, k * ec:k * ec + n].T)
+        np.testing.assert_array_equal(img[k, img_w2:].reshape(C2, p2)[:, :n],
+                                      w2[k * ec:k * ec + n].T)
+        taps = img[k, img_c + 24 * ec:img_w2].reshape(3, ec, 4)
+        np.testing.assert_array_equal(
+            taps[:, :n, :3], op.wd.numpy()[:, k * ec:k * ec + n].reshape(3, 3, n).transpose(0, 2, 1))
+        assert not taps[..., 3].any()
+    np.testing.assert_array_equal(op.zw2.numpy(), op.zp_d * op.ws2.numpy())
+
+
+@pytest.mark.parametrize("zp,lo,hi", [(-128, None, 127), (-128, None, -15), (-77, None, 127),
+                                      (19, None, 100), (5, -128, 127), (-128, -128, 127),
+                                      (127, -128, 127), (127, None, 127)])
+@pytest.mark.parametrize("s", [0.0213, 0.0531, 1e-3, 2.5])
+def test_quant_u8_clamped_equals_quant_u8(s, zp, lo, hi):
+    """``quant_u8_clamped`` against ``quant_u8`` (both of
+    ``csrc/int8_epilogue.cuh``, in numpy float32) at and around every
+    rounding tie, at both bounds and far outside; ``lo=None`` is K3's
+    activation floor ``zp``, ``(-128, 127)`` its project and output form."""
+    from dfq_tpu_torch.ops.rounding import recip_xla
+
+    lo = zp if lo is None else lo
+    r, zp128, lo128, hi128 = _f32(recip_xla(s)), _f32(zp + 128), _f32(lo + 128), _f32(hi + 128)
+    rng = np.random.default_rng(11)
+    ties = _f32((np.arange(-300, 300) + 0.5) * s)
+    near = np.concatenate([np.nextafter(ties, _f32(np.inf)), ties,
+                           np.nextafter(ties, _f32(-np.inf))])
+    f = np.concatenate([near, _f32(rng.normal(0, 3, 4096)), _f32(rng.normal(0, 1e4, 512)),
+                        _f32([0.0, -0.0, 6.0, 3.4e38, -3.4e38, np.inf, -np.inf, np.nan, 1e-45,
+                              2.0 ** 23 * s, -2.0 ** 23 * s, 2.0 ** 24 * s, 2.0 ** 31,
+                              -2.0 ** 31])])
+    with np.errstate(over="ignore", invalid="ignore"):
+        q = np.rint(_f32(f * r)) + zp128
+        want = np.fmin(np.fmax(q, lo128), hi128).astype(np.int32) - 128
+    np.testing.assert_array_equal(_quant_u8_clamped(f, r, zp + 128, lo + 128, hi + 128), want)
+    if lo == zp:  # the grids with an activation floor at 0 also take quant_relu
+        tiny = _f32([2.0 ** -126 * s, -(2.0 ** -126) * s, 2.0 ** -140, 255.5 * s, 256.0 * s,
+                     256.5 * s, 1e30])
+        g = np.concatenate([f, tiny])
+        with np.errstate(over="ignore", invalid="ignore"):
+            q = np.rint(_f32(g * r)) + zp128
+            want_g = np.fmin(np.fmax(q, lo128), hi128).astype(np.int32) - 128
+        np.testing.assert_array_equal(_quant_relu(g, r, zp + 128, hi + 128), want_g)
+    # the torch form the plain version uses agrees wherever f is a number
+    ok = ~np.isnan(f)
+    plain = ck.quant_u8(torch.from_numpy(f[ok]), float(r), zp, float(lo128), float(hi128))
+    np.testing.assert_array_equal(plain.numpy(), want[ok])
+
+
+@pytest.mark.parametrize("bound", [2 ** 22 - 1, 255 * 128 * 128, 9 * 255 * 128])
+def test_magic_number_accumulators_convert_exactly(bound):
+    """An int32 accumulator that starts at the bit pattern of 1.5 * 2^23
+    holds, for every |sum| < 2^22, the float 1.5 * 2^23 + sum, so that one
+    float subtraction is the int -> float conversion (K3's depthwise: 9
+    taps of 255 * 128; its expand up to C = 128: 255 * 128 * C)."""
+    assert bound < 2 ** 22
+    rng = np.random.default_rng(bound)
+    sums = np.concatenate([rng.integers(-bound, bound + 1, 4096),
+                           [-bound, bound, 0, 1, -1]]).astype(np.int32)
+    bits = (np.int32(0x4B400000) + sums).view(np.float32)
+    np.testing.assert_array_equal(_f32(bits - _f32(12582912.0)), sums.astype(np.float32))
+
+
+@pytest.mark.parametrize("ratio,zp_from,zp_to", [(1.0928, -9, 4), (0.9156, -9, -2),
+                                                 (3.7, 127, -128), (0.01, -128, 127)])
+def test_requant_clamped_equals_requant(ratio, zp_from, zp_to):
+    from dfq_tpu_torch.ops.rounding import requant_i8
+
+    q = np.arange(-128, 128).astype(np.int8)
+    want = requant_i8(torch.from_numpy(q), zp_from, float(_f32(ratio)), zp_to).numpy()
+    got = _requant_clamped(q, zp_from, ratio, zp_to + 128)
+    np.testing.assert_array_equal(got, want.astype(np.int32))
+
+
+@pytest.mark.parametrize("W", [7, 14, 28, 56, 10, 13])
+def test_fused_block_tile_layouts_equal_the_plain_product(W):
+    """The expand as the kernel lays it out: channels are the MMA's M and
+    pixels its N, so lane (g, t) of tile (mt, nt) holds channels 16 mt + g
+    and + 8 of pixels 8 nt + 2 t and + 1, two W-neighbours that go as one
+    16-bit store to byte 4 + w of e-tile row (r, channel); an 8-pixel tile
+    never crosses an image row because rows are staged wx pixels apart.
+    Pixels W .. wx - 1 get values of no meaning. The depthwise then finds
+    pixel w - 1 .. w + 1 of a strip in three words, with zp_e patched into
+    the place of pixel W, and the bank of a lane's word is its channel's
+    (odd word pitch)."""
+    rng = np.random.default_rng(W)
+    ec, R = 32, 3
+    wx, wp = -(-W // 8) * 8, -(-W // 8) * 8 + 12
+    e_true = rng.integers(-128, 128, (R, ec, W)).astype(np.int8)  # what the GEMM yields
+    es = np.full((R, ec, wp), 0x55, np.uint8)
+    es[:, :, :4] = es[:, :, 4 + wx:] = 0x80
+    for nt in range(R * wx // 8):
+        r, w0 = divmod(nt * 8, wx)
+        for mte in range(ec // 16):
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                w = w0 + 2 * t
+                for h2 in range(2):
+                    c = mte * 16 + g + 8 * h2
+                    pair = [e_true[r, c, w + i] if w + i < W else 0x33 for i in range(2)]
+                    assert (4 + w) % 2 == 0  # the 16-bit store is aligned
+                    es[r, c, 4 + w:6 + w] = np.array(pair, np.int8).view(np.uint8)
+    np.testing.assert_array_equal(es[:, :, 4:4 + W].view(np.int8), e_true)
+    assert (es[:, :, :4] == 0x80).all() and (es[:, :, 4 + wx:] == 0x80).all()
+    words = es.view("<u4")
+    for s in range(-(-W // 4)):
+        w0, w1, w2 = (words[1, :, s + i].copy() for i in range(3))
+        if W < wx:
+            m = np.uint32(0xff << (8 * (W & 3)))
+            if s == W // 4:
+                w1 = (w1 & ~m) | (np.uint32(0x80808080) & m)
+            if s + 1 == W // 4:
+                w2 = (w2 & ~m) | (np.uint32(0x80808080) & m)
+        win = [_byte_perm(w0, w1, 0x6543), w1, _byte_perm(w1, w2, 0x4321),
+               _byte_perm(w1, w2, 0x5432)]
+        padded = np.full((ec, W + 2 + 8), -128, np.int8)
+        padded[:, 1:W + 1] = e_true[1]
+        for j in range(4):
+            if 4 * s + j < W:
+                got = np.ascontiguousarray(win[j]).view(np.int8).reshape(ec, 4)[:, :3]
+                np.testing.assert_array_equal(got, padded[:, 4 * s + j:4 * s + j + 3])
+    # 32 lanes = 32 consecutive channels of one strip: 32 different banks
+    assert len({(c * wp // 4) % 32 for c in range(32)}) == 32
