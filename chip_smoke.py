@@ -37,10 +37,39 @@ Phases, in order; any failure exits non-zero:
    sums at a recorded dp4a rate; per site only, not a bound); the forward
    at batch 8 and 128.
 
-It prints the ``kernels`` JSON line, then the card line, then as the last
-line ``{"ok": true, "device": {...}}``. Per-site details go to
-``chiprun_out/chip_smoke.json``. Without CUDA it exits 2 and prints no
-result.
+7. the golden artifact (``golden/``) through the port's ``load_artifact``:
+   the baseline engine (``Int8Net``) on ``golden/input.npy`` equals
+   ``golden/logits.npy`` to 1e-5 with equal argmax (the JAX suite's
+   limit), the fused engine gives the same argmax;
+8. ResNet-18, full width, 224x224, batch 8, random weights from the seed,
+   the flagship config: ``Int8FusedNet`` launches K1 once per forward (the
+   ``fc``) and K2/K3 never, and its logits equal the plain-kernel net's
+   (atol 1e-4, same argmax); the baseline engine agrees with it as the JAX
+   suite holds the two (fused top-1 inside the baseline's top 5 for every
+   image, argmax agreement >= 0.75); the f32 simulator on the card agrees
+   with the same function on the CPU (the float model to ``SIM_RTOL`` of
+   the largest logit, which TF32 or an inexact conv algorithm would break;
+   with the fake-quant sites to ``SIM_FQ_RTOL``, the CPU test's limit);
+9. every conv that has no kernel, at every call site of both models, at
+   batch 8 and 3 and, at each model's largest sites, batch 128, through
+   the packed product each engine holds (``products``), against
+   ``F.conv2d`` in float64 on the card (exact: every sum is below 2^53),
+   and the baseline engine's linear layers against a float64 product: the
+   int32 accumulators must be bit-equal;
+10. the classification entry point in-process (``run_cls --resnet
+   --quantize --relu --equalize``), once with ``--engine fused`` and once
+   with ``--engine int8``, each saving its artifact: the artifact reloaded
+   through the same engine reproduces the entry point's logits bit for
+   bit;
+11. times (CUDA events, medians): ResNet-18's forward at batch 8 and 128
+   through the fused engine, the baseline engine and the simulator; K1 at
+   ResNet-18's ``fc`` beside its bound and ``torch._int_mm``; MobileNetV2's
+   three engines at batch 128.
+
+It prints the ``kernels`` JSON line (with each kernel's launches on each
+model's path), then the card line, then as the last line ``{"ok": true,
+"device": {...}}``. Per-site details go to ``chiprun_out/chip_smoke.json``.
+Without CUDA it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -59,6 +88,13 @@ BIG_BATCH = 128  # the timing batch beside it
 ODD_BATCH = 3  # phase 3: no site's M is a multiple of a tile
 SIZE = 224
 TOL = 1e-4  # logits, as the CPU slice test (tests/test_int8_fused.py:102)
+GOLDEN_TOL = 1e-5  # tests/test_golden_artifact.py:37
+# simulator on the card vs on the CPU, as a share of the largest logit: the
+# float model (f32 sums in other orders: ~1e-6; TF32 keeps ~1e-3 a conv),
+# and with its fake-quant sites (a tie flipped by a last-bit difference
+# moves a value a grid step: tests/test_torch_executor.py's limit)
+SIM_RTOL = 1e-4
+SIM_FQ_RTOL = 2e-2
 
 # (memory bytes/s, dense int8 ops/s) by card; NVIDIA data sheets
 _PEAKS = {
@@ -110,6 +146,10 @@ def site_inputs(graph, batch: int, size: int):
             shapes[node.name] = (s[0], a["out_f"])
         elif node.op == "global_mean":
             shapes[node.name] = (s[0], s[3])
+        elif node.op in ("maxpool", "avgpool"):
+            (kh, kw), (sh, sw), (ph, pw) = a["window"], a["stride"], a["padding"]
+            shapes[node.name] = (s[0], (s[1] + 2 * ph - kh) // sh + 1,
+                                 (s[2] + 2 * pw - kw) // sw + 1, s[3])
         else:
             shapes[node.name] = s
     return shapes
@@ -256,17 +296,239 @@ def ptxas_report(log: Path):
     return out
 
 
+def flagship(graph_fn):
+    """The flagship DFQ config on a model with random weights from the seed:
+    ``(prepared, lowered, residual f32 params)``."""
+    from dfq_tpu_torch.engine import lower_int8
+    from dfq_tpu_torch.models import init_params
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    graph = graph_fn()
+    cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
+                      correction=True, bits_bias=16)
+    prep = prepare(graph, init_params(graph, seed=0, bn_stats="random"), cfg)
+    model = lower_int8(prep)
+    return prep, model, {k: v for k, v in prep.params.items() if k not in model.layers}
+
+
+def forward_ms(fn, x, rounds: int = 7) -> float:
+    """Median over ``rounds`` of 5 synchronised forwards, as phase 6."""
+    import torch
+
+    with torch.no_grad():
+        return float(np.median([time_ms(lambda: fn(x), reps=5, rounds=1)
+                                for _ in range(rounds)]))
+
+
+def phase_golden(root: Path) -> dict:
+    """7. The committed golden artifact through both engines on the card."""
+    import torch
+
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.io import load_artifact
+
+    model, residual = load_artifact(str(root / "golden" / "artifact"))
+    x = torch.from_numpy(np.load(root / "golden" / "input.npy")).to(DEVICE)
+    want = np.load(root / "golden" / "logits.npy")
+    with torch.no_grad():
+        got = Int8Net(model, residual, device=DEVICE)(x).cpu().numpy()
+        fused = Int8FusedNet(model, device=DEVICE, params_f32=residual)(x).cpu().numpy()
+    diff = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    if diff > GOLDEN_TOL or not (got.argmax(-1) == want.argmax(-1)).all():
+        raise AssertionError(f"golden: baseline engine {got.shape} max abs {diff} vs "
+                             f"golden/logits.npy, argmax {got.argmax(-1)} vs {want.argmax(-1)}")
+    if not np.isfinite(fused).all() or not (fused.argmax(-1) == want.argmax(-1)).all():
+        raise AssertionError(f"golden: fused engine argmax {fused.argmax(-1)} vs "
+                             f"{want.argmax(-1)}")
+    print(f"golden artifact: baseline engine max abs {diff} (limit {GOLDEN_TOL}), argmax "
+          f"{got.argmax(-1).tolist()} == pinned; fused engine argmax equal", flush=True)
+    return {"max_abs": diff, "fused_max_abs": float(np.abs(fused - want).max())}
+
+
+def phase_resnet(ck, images) -> dict:
+    """8. ResNet-18 at full width, 224x224, batch 8, through the fused
+    engine (launch counts, against its plain-kernel net), the baseline
+    engine and the simulator (on the card against the CPU)."""
+    import torch
+
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.graph import execute
+    from dfq_tpu_torch.graph.executor import params_to
+    from dfq_tpu_torch.models import resnet18
+
+    prep, model, residual = flagship(resnet18)
+    net = Int8FusedNet(model, device=DEVICE)
+    ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
+    base = Int8Net(model, residual, device=DEVICE)
+    if [(n, k) for n, k, _ in net.kernel_sites] != [("fc", "matmul_int8_requant")]:
+        raise AssertionError(f"ResNet-18 kernel sites {net.kernel_sites}")
+    x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
+    with torch.no_grad():
+        ck.reset_counts()
+        logits = net(x8)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        ref = ref_net(x8)
+        lg_base = base(x8).cpu().numpy()
+    if launches != {"matmul_int8_requant": 1, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
+        raise AssertionError(f"ResNet-18 launches {launches}")
+    lg, rf = logits.cpu().numpy(), ref.cpu().numpy()
+    if lg.shape != (BATCH, 1000) or not np.isfinite(lg).all():
+        raise AssertionError(f"ResNet-18 logits {lg.shape}, finite={np.isfinite(lg).all()}")
+    diff = float(np.abs(lg - rf).max())
+    if diff > TOL or not (lg.argmax(-1) == rf.argmax(-1)).all():
+        raise AssertionError(f"ResNet-18 logits vs plain versions: max abs {diff}")
+    # the JAX suite's fused-vs-baseline check (tests/test_int8_fused.py:40-67)
+    top5 = np.argsort(lg_base, -1)[:, -5:]
+    in_top5 = float(np.mean([lg[i].argmax() in top5[i] for i in range(BATCH)]))
+    agree = float(np.mean(lg_base.argmax(-1) == lg.argmax(-1)))
+    if in_top5 != 1.0 or agree < 0.75:
+        raise AssertionError(f"ResNet-18 fused vs baseline: in top-5 {in_top5}, argmax "
+                             f"agreement {agree}")
+    # the simulator: on the card vs the same function on the CPU
+    sim = {}
+    for name, ranges, rtol in (("float", None, SIM_RTOL),
+                               ("fake_quant", prep.act_ranges, SIM_FQ_RTOL)):
+        with torch.no_grad():
+            on_card = execute(prep.graph, prep.params, x8, act_ranges=ranges,
+                              device=DEVICE).cpu().numpy()
+            on_cpu = execute(prep.graph, prep.params, x8.cpu(), act_ranges=ranges,
+                             device="cpu").numpy()
+        d = float(np.abs(on_card - on_cpu).max())
+        peak = float(np.abs(on_cpu).max())
+        sim[name] = {"max_abs": d, "max_logit": peak, "limit": rtol * peak,
+                     "argmax_agree": float(np.mean(on_card.argmax(-1) == on_cpu.argmax(-1)))}
+        if not np.isfinite(on_card).all() or d > rtol * peak:
+            raise AssertionError(f"ResNet-18 simulator ({name}) card vs CPU: max abs {d} "
+                                 f"> {rtol} x {peak}")
+    print(f"ResNet-18: logits {lg.shape} finite, max abs vs plain {diff}, launches {launches}; "
+          f"baseline engine: fused top-1 in its top 5 {in_top5}, argmax agreement {agree}; "
+          f"simulator card vs CPU {sim}", flush=True)
+    return {"prep": prep, "model": model, "residual": residual, "net": net, "base": base,
+            "launches": launches,
+            "detail": {"launches": launches, "max_abs_vs_plain": diff, "in_top5": in_top5,
+                       "argmax_agree_baseline": agree, "simulator": sim,
+                       "argmax": lg.argmax(-1).tolist()}}
+
+
+def conv_work(graph, name: str, batch: int) -> int:
+    """MACs of one conv at ``batch`` (224x224)."""
+    node = graph[name]
+    out = site_inputs(graph, batch, SIZE)[name]
+    a = node.attrs
+    return int(np.prod(out)) * a["in_ch"] // a["groups"] * a["kernel"][0] * a["kernel"][1]
+
+
+def phase_exact_products(paths, gen) -> dict:
+    """9. Every packed int8 product that is not a kernel (every lowered conv
+    and linear of the baseline engine, every non-kernel conv of the fused
+    engine) against float64 on the card, at batch 8 and 3 and, at the
+    largest site of each route of each model, 128: bit-equal int32."""
+    import torch
+    import torch.nn.functional as F
+
+    from dfq_tpu_torch.engine.int8 import int8_conv, int8_linear
+
+    n_checked = 0
+    routes = {}
+    for model_name, graph, engines in paths:
+        names = sorted({n for _, e in engines for n in e.products},
+                       key=lambda n: [x.name for x in graph].index(n))
+        route = {n: next(e.products[n].route for _, e in engines if n in e.products)
+                 for n in names}
+        convs = [n for n in names if graph[n].op == "conv"]
+        big = {max((n for n in convs if route[n] == r), key=lambda n: conv_work(graph, n, 1))
+               for r in set(route[n] for n in convs)}
+        checks = [(n, b) for b in (BATCH, ODD_BATCH) for n in names] + [
+            (n, BIG_BATCH) for n in sorted(big)]
+        for name, batch in checks:
+            node = graph[name]
+            shape = site_inputs(graph, batch, SIZE)[node.inputs[0]]
+            x = torch.randint(-128, 128, shape, generator=gen, device=DEVICE,
+                              dtype=torch.int8)
+            layer = engines[0][1].model.layers[name]
+            qw = torch.from_numpy(layer.qweight).to(DEVICE, torch.float64)
+            zp = layer.in_zp
+            if node.op == "conv":
+                a = node.attrs
+                (ph, pw) = a["padding"]
+                xp = F.pad(x.permute(0, 3, 1, 2).double(), (pw, pw, ph, ph), value=zp)
+                want = F.conv2d(xp, qw, stride=a["stride"], dilation=a["dilation"],
+                                groups=a["groups"]).permute(0, 2, 3, 1).to(torch.int32)
+            else:
+                want = (x.double() @ qw.t()).to(torch.int32)
+            del qw
+            for eng_name, eng in engines:
+                if name not in eng.products:
+                    continue
+                prod = eng.products[name]
+                got = (int8_conv(x, node, prod, zp) if node.op == "conv"
+                       else int8_linear(x, prod))
+                torch.cuda.synchronize()
+                if got.dtype != torch.int32 or not torch.equal(got, want):
+                    bad = int((got != want).sum()) if got.shape == want.shape else "shape"
+                    raise AssertionError(
+                        f"{model_name} {eng_name} {name} ({prod.route}) b{batch} "
+                        f"{tuple(shape)}: {bad} int32 accumulators differ from float64")
+                n_checked += 1
+                routes[f"{model_name}/{name}"] = prod.route
+            del x, want
+        print(f"{model_name}: {len(names)} exact int8 products (routes "
+              f"{ {r: sum(1 for n in names if route[n] == r) for r in set(route.values())} }) "
+              f"bit-equal to float64 at batch {BATCH} and {ODD_BATCH}, and at batch "
+              f"{BIG_BATCH} at {sorted(big)}", flush=True)
+    return {"checks": n_checked, "routes": routes}
+
+
+def phase_cli(out_dir: Path) -> dict:
+    """10. The classification entry point in-process, fused then int8, each
+    saving its artifact; the reloaded artifact through the same engine
+    reproduces the entry point's logits bit for bit."""
+    import shutil
+
+    import torch
+
+    from dfq_tpu_torch.cli import run_cls
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.io import load_artifact
+
+    art = out_dir / "r18_art"
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (8, 224, 224, 3)).astype(
+        np.float32)).to(DEVICE)
+    result = {}
+    try:
+        for engine in ("fused", "int8"):
+            out = run_cls.main(["--resnet", "--quantize", "--relu", "--equalize",
+                                "--engine", engine, "--save-artifact", str(art)])
+            model, residual = load_artifact(str(art))
+            net = (Int8FusedNet(model, device=DEVICE, params_f32=residual) if engine == "fused"
+                   else Int8Net(model, residual, device=DEVICE))
+            with torch.no_grad():
+                again = net(x).cpu().numpy()
+            if not np.array_equal(again, out["logits"]):
+                raise AssertionError(f"run_cls --engine {engine}: the reloaded artifact's "
+                                     f"logits differ (max abs "
+                                     f"{float(np.abs(again - out['logits']).max())})")
+            result[engine] = {"argmax": out["logits"].argmax(-1).tolist()}
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    print(f"run_cls --resnet: fused and int8 engines, artifacts reloaded bit-equal {result}",
+          flush=True)
+    return result
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
-    from dfq_tpu_torch.models import init_params, mobilenet_v2
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.graph import execute
+    from dfq_tpu_torch.graph.executor import params_to
+    from dfq_tpu_torch.models import mobilenet_v2
     from dfq_tpu_torch.ops import _build
     from dfq_tpu_torch.ops import cuda_int8 as ck
-    from dfq_tpu_torch.pipeline import QuantConfig, prepare
     from dfq_tpu_torch.serve import MicroBatcher
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -299,11 +561,8 @@ def main() -> int:
         raise AssertionError(f"ptxas reports spills in {spilled} (or no report: {ptxas})")
 
     # the main path's network (built once; weights from the seed)
-    graph = mobilenet_v2()
-    params = init_params(graph, seed=0, bn_stats="random")
-    cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
-                      correction=True, bits_bias=16)
-    model = lower_int8(prepare(graph, params, cfg))
+    prep, model, residual = flagship(mobilenet_v2)
+    graph = model.graph
     net = Int8FusedNet(model, device=DEVICE)
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
     wrappers = {
@@ -493,6 +752,64 @@ def main() -> int:
               f"({batch / fwd[batch] * 1e3:.0f} img/s), rounds min {min(rounds):.3f} "
               f"max {max(rounds):.3f} ms", flush=True)
     detail["forward_ms"] = fwd
+
+    # 7. the golden artifact
+    detail["golden"] = phase_golden(Path(__file__).resolve().parent)
+
+    # 8. ResNet-18's path (its launch counts are read around its forward)
+    r18 = phase_resnet(ck, images)
+    detail["resnet18"] = r18["detail"]
+
+    # 9. every exact int8 product that is not a kernel, on both paths
+    base = Int8Net(model, residual, device=DEVICE)
+    detail["exact_products"] = phase_exact_products(
+        [("mobilenet_v2", model.graph, [("baseline", base), ("fused", net)]),
+         ("resnet18", r18["model"].graph, [("baseline", r18["base"]), ("fused", r18["net"])])],
+        gen)
+
+    # 10. the classification entry point
+    detail["cli"] = phase_cli(out_dir)
+
+    # 11. times: the three engines' forwards; K1 at ResNet-18's fc
+    def simulator(p):
+        sim_params = params_to(p.params, DEVICE)
+        return lambda x: execute(p.graph, sim_params, x, act_ranges=p.act_ranges,
+                                 device=DEVICE)
+
+    engines = {"resnet18": (("fused", r18["net"]), ("baseline", r18["base"]),
+                            ("simulator", simulator(r18["prep"]))),
+               "mobilenet_v2": (("baseline", base), ("simulator", simulator(prep)))}
+    times = {f"mobilenet_v2/fused/b{b}": fwd[b] for b in (BATCH, BIG_BATCH)}
+    for path, batches in (("resnet18", (BATCH, BIG_BATCH)), ("mobilenet_v2", (BIG_BATCH,))):
+        for batch in batches:
+            xb = torch.from_numpy(np.resize(images, (batch, SIZE, SIZE, 3))).to(DEVICE)
+            for eng, fn in engines[path]:
+                times[f"{path}/{eng}/b{batch}"] = forward_ms(fn, xb)
+    for key, ms in times.items():
+        print(f"forward {key}: median {ms:.3f} ms ({int(key.rsplit('/b', 1)[1]) / ms * 1e3:.0f} "
+              f"img/s)", flush=True)
+    detail["engine_forward_ms"] = times
+    fc_op = r18["net"].kernel_sites[0][2]
+    wrap, plain = wrappers["matmul_int8_requant"]
+    k1_fc = []
+    for batch in (BATCH, BIG_BATCH):
+        x = torch.randint(-128, 128, (batch, fc_op.w.shape[1]), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        nbytes, nops = work("matmul_int8_requant", fc_op, tuple(x.shape),
+                            wrap(x, fc_op).element_size())
+        bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
+        lib = library_call("matmul_int8_requant", fc_op, x)
+        k1_fc.append({"batch": batch, "shape": list(x.shape),
+                      "ms": time_ms(lambda: wrap(x, fc_op)),
+                      "device_ms": graph_ms(lambda: wrap(x, fc_op)),
+                      "plain_ms": time_ms(lambda: plain(x, fc_op), reps=3, rounds=3),
+                      "library_device_ms": None if lib is None else graph_ms(lib),
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        print(f"K1 at ResNet-18's fc, b{batch} {tuple(x.shape)} -> {fc_op.w.shape[0]}: "
+              f"{k1_fc[-1]}" + ("" if lib else f" (no library yardstick: {INT_MM_RULE})"),
+              flush=True)
+    detail["k1_resnet18_fc"] = k1_fc
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -513,6 +830,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"] if r["has_library"] else None,
+            "launches_by_path": {"mobilenet_v2": launches[k],
+                                 "resnet18": r18["launches"][k]},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

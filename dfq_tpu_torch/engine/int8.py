@@ -1,5 +1,5 @@
-"""int8 lowering (port of ``dfq_tpu/engine/int8.py``: the parts the fused
-engine needs).
+"""int8 lowering and the baseline int8 engine (port of
+``dfq_tpu/engine/int8.py``).
 
 - conv/linear weights stored as int8 with per-output-channel symmetric
   scales,
@@ -10,23 +10,43 @@ engine needs).
 
 ``lower_int8`` consumes a :class:`~dfq_tpu_torch.pipeline.PreparedModel`
 (its post-pass, pre-weight-quant ``params_fp``) and is host numpy, equal
-to the JAX package's field for field. The baseline engine
-``execute_int8`` is not ported yet (ROADMAP).
+to the JAX package's field for field.
+
+:class:`Int8Net` is the baseline engine (``execute_int8``): every lowered
+conv and linear layer quantizes its f32 input, runs an exact int8
+product (:func:`int8_conv`, :func:`int8_linear`) and dequantizes with an
+f32 epilogue; every other op runs in f32 with the simulator's site
+fake-quant. All ``bits_act <= 8`` regimes run here.
+
+The int8 products are exact by construction, for any K: float64 on the
+CPU; on CUDA, dense convs are ``k*k`` accumulated int8 GEMMs over shifted
+views of the zero-point-padded input (the JAX package's
+``_int8_conv_shift9``) and linear layers one int8 GEMM, both
+``torch._int_mm`` (int8 x int8 -> int32 on the tensor cores; the JAX
+package leaves these products to XLA), zero-padded to its shape rule.
+Grouped convs, and dense convs whose ``Cin`` is not a multiple of 8 (the
+3-channel stems), run as an f32 cuDNN conv with TF32 off, exact while
+``K = Cin/groups * kh * kw <= 1024``; beyond that they too go to
+``torch._int_mm``, a group at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch import nn
+
+from dfq_tpu_torch.device import resolve_device
+from dfq_tpu_torch.graph.executor import apply_op, highest_precision, params_to
 from dfq_tpu_torch.graph.ir import Graph
-from dfq_tpu_torch.ops.rounding import quant_u8, recip_xla
+from dfq_tpu_torch.ops.rounding import f32, fma_f32, mean_quant_recip, quant_u8, recip_xla
 from dfq_tpu_torch.pipeline import PreparedModel
-from dfq_tpu_torch.quant.core import fake_quant_np
+from dfq_tpu_torch.quant.core import fake_quant, fake_quant_np
 
 
 @dataclasses.dataclass
@@ -126,37 +146,292 @@ def _quantize_act(x: torch.Tensor, layer: Int8Layer, qmax: float = 255.0) -> tor
 
 # largest K = Cin/groups * kh * kw for which an f32 conv of int8 operands
 # is exact: every partial sum stays below 2^24 (|products| <= 2^14)
-_F32_EXACT_K = 1024
+F32_EXACT_K = 1024
+# torch._int_mm on CUDA takes M > 16 and K, N multiples of 8
+INT_MM_MIN_M = 17
+INT_MM_ALIGN = 8
 
 
-def _int8_conv(xq: torch.Tensor, node, qweight: torch.Tensor, zp: int) -> torch.Tensor:
-    """int8 NHWC conv with OIHW int8 weights -> int32 NHWC, with zero-point
-    padding: real 0 quantizes to ``zp``, so the spatial padding holds
-    ``zp`` for the ``acc - zp * colsum(w)`` fold to be exact at the
-    borders.
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
-    This is the work the JAX package left to XLA's int8 conv (the stem and
-    the stride-2 depthwise convs). On the CPU it runs in float64; on CUDA
-    as an f32 conv with TF32 off, which is exact while
-    ``Cin/groups * kh * kw <= 1024`` (checked)."""
+
+def int_mm_exact(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] int8 @ w_nk[N, K]^T -> int32 [M, N]`` by ``torch._int_mm``,
+    with ``a``'s rows and columns zero-padded to its shape rule (``w_nk``
+    comes padded: N and K multiples of 8). Zero rows and columns add
+    nothing; the padded rows are sliced off."""
+    M, K = a.shape
+    Kp = w_nk.shape[1]
+    Mp = max(M, INT_MM_MIN_M)
+    if (Mp, Kp) != (M, K):
+        a = F.pad(a, (0, Kp - K, 0, Mp - M))
+    out = torch._int_mm(a.contiguous(), w_nk.t())
+    return out[:M] if Mp != M else out
+
+
+@dataclasses.dataclass
+class Int8Product:
+    """An int8 conv's or linear layer's weights, packed once on the device
+    for its exact route:
+
+    - ``"f64"`` (the CPU): ``w`` float64, OIHW or ``[N, K]``;
+    - ``"f32"`` (CUDA, grouped convs and small-channel stems with
+      K <= 1024): ``w`` float32 OIHW, cuDNN with TF32 off;
+    - ``"int_mm"`` (CUDA): ``w`` int8 ``[groups, kh*kw, Np, Kp]``, one
+      row-major ``[N, K]`` matrix a group and tap, N and K zero-padded to
+      multiples of 8 (a linear layer: one group, one tap).
+    """
+
+    route: str
+    w: torch.Tensor
+    n_out: int  # output channels (before padding)
+
+
+def pack_int8_product(qweight: np.ndarray, node, device) -> Int8Product:
+    """Pack an int8 OIHW conv weight (or ``[N, K]`` linear weight) for
+    :func:`int8_conv` / :func:`int8_linear` on ``device``."""
+    dev = resolve_device(device)
+    qw = torch.as_tensor(np.asarray(qweight))
+    if dev.type == "cpu":
+        return Int8Product("f64", qw.to(torch.float64).contiguous(), qw.shape[0])
+    if node.op == "conv":
+        _, cin_g, kh, kw = qw.shape
+        if cin_g * kh * kw <= F32_EXACT_K and (
+                node.attrs["groups"] > 1 or cin_g % INT_MM_ALIGN):
+            return Int8Product("f32", qw.to(device=dev, dtype=torch.float32).contiguous(),
+                               qw.shape[0])
+    return pack_int_mm(qweight, node, dev)
+
+
+def pack_int_mm(qweight: np.ndarray, node, device) -> Int8Product:
+    """The ``"int_mm"`` packing (any device: ``torch._int_mm`` runs on the
+    CPU too, which the tests use to check the padding)."""
+    qw = torch.as_tensor(np.asarray(qweight))
+    n_out = qw.shape[0]
+    if node.op == "linear":
+        taps = qw.reshape(1, 1, n_out, -1)
+    else:
+        O, cin_g, kh, kw = qw.shape
+        groups = node.attrs["groups"]
+        # [O, cin_g, kh, kw] -> [groups, kh*kw, O/groups, cin_g]
+        taps = qw.reshape(groups, O // groups, cin_g, kh * kw).permute(0, 3, 1, 2)
+    n, k = taps.shape[-2:]
+    taps = F.pad(taps, (0, _round_up(k, INT_MM_ALIGN) - k, 0, _round_up(n, INT_MM_ALIGN) - n))
+    return Int8Product("int_mm", taps.to(device=device, dtype=torch.int8).contiguous(), n_out)
+
+
+def shifted_views(xp: torch.Tensor, node):
+    """The ``kh*kw`` stride/dilation-aware shifted views of a padded NHWC
+    input, in (ky, kx) row-major tap order, and the output size."""
+    a = node.attrs
+    (kh, kw), (sh, sw), (dh, dw) = a["kernel"], a["stride"], a["dilation"]
+    _, hp, wp, _ = xp.shape
+    oh = (hp - dh * (kh - 1) - 1) // sh + 1
+    ow = (wp - dw * (kw - 1) - 1) // sw + 1
+    views = [xp[:, ky * dh: ky * dh + (oh - 1) * sh + 1: sh,
+                kx * dw: kx * dw + (ow - 1) * sw + 1: sw]
+             for ky in range(kh) for kx in range(kw)]
+    return views, oh, ow
+
+
+def int8_conv(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+    """int8 NHWC conv -> int32 NHWC, with zero-point padding: real 0
+    quantizes to ``zp``, so the spatial padding holds ``zp`` for the
+    ``acc - zp * colsum(w)`` fold to be exact at the borders."""
     a = node.attrs
     ph, pw = a["padding"]
-    x = xq.permute(0, 3, 1, 2)
-    if (ph, pw) != (0, 0):
-        x = F.pad(x, (pw, pw, ph, ph), value=zp)
-    if xq.device.type == "cpu":
-        dtype = torch.float64
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph), value=zp) if (ph, pw) != (0, 0) else xq
+    if prod.route != "int_mm":
+        dtype = torch.float64 if prod.route == "f64" else torch.float32
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            acc = F.conv2d(xp.permute(0, 3, 1, 2).to(dtype), prod.w, stride=a["stride"],
+                           dilation=a["dilation"], groups=a["groups"])
+        return acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
+    views, oh, ow = shifted_views(xp, node)
+    B = xq.shape[0]
+    groups = prod.w.shape[0]
+    cin_g = xq.shape[-1] // groups
+    outs = []
+    for g in range(groups):
+        acc = None
+        for t, v in enumerate(views):
+            a2 = v[..., g * cin_g:(g + 1) * cin_g].reshape(-1, cin_g)
+            d = int_mm_exact(a2, prod.w[g, t])
+            acc = d if acc is None else acc.add_(d)
+        outs.append(acc)
+    acc = outs[0] if groups == 1 else torch.cat(
+        [o[:, :prod.n_out // groups] for o in outs], dim=-1)
+    return acc[:, :prod.n_out].reshape(B, oh, ow, prod.n_out)
+
+
+def int8_linear(xq: torch.Tensor, prod: Int8Product) -> torch.Tensor:
+    """int8 ``[..., K]`` times the packed ``[N, K]`` weight -> int32 ``[..., N]``."""
+    lead = xq.shape[:-1]
+    x2 = xq.reshape(-1, xq.shape[-1])
+    if prod.route == "f64":
+        acc = (x2.to(torch.float64) @ prod.w.reshape(prod.n_out, -1).t()).to(torch.int32)
     else:
-        k = qweight.shape[1] * qweight.shape[2] * qweight.shape[3]
-        if k > _F32_EXACT_K:
-            raise ValueError(
-                f"{node.name}: f32 conv of K={k} int8 products is not exact "
-                f"(limit {_F32_EXACT_K})"
-            )
-        dtype = torch.float32
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        acc = F.conv2d(
-            x.to(dtype), qweight.to(dtype), stride=a["stride"],
-            dilation=a["dilation"], groups=a["groups"],
-        )
-    return acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
+        acc = int_mm_exact(x2, prod.w[0, 0])[:, :prod.n_out]
+    return acc.reshape(lead + (prod.n_out,))
+
+
+# ops whose inputs the baseline engine fake-quantizes at their sites
+_SITE_OPS = {"conv", "linear", "add", "concat", "global_mean", "interpolate",
+             "softmax", "l2norm"}
+
+
+class Int8Net(nn.Module):
+    """The baseline int8 engine (``execute_int8``) as a module on one
+    device: every lowered layer's int8 weights, ``wsum``, combined scales
+    and bias, and the residual f32 params, are packed once here.
+    ``device=None`` means CUDA, and raises without it.
+
+    The f32 glue mirrors the forms XLA compiles the JAX engine into
+    (``dfq_tpu_torch/ops/rounding.py``): the input quantize multiplies by
+    ``f32(1/f32(in_scale))``; the epilogue ``f32(acc) * (in_scale *
+    w_scale) + bias`` is one FMA; a spatial mean is a sequential f32 sum,
+    whose ``1/n`` folds into the quantize of a lowered consumer; site
+    fake-quants are :func:`~dfq_tpu_torch.quant.core.fake_quant`.
+    """
+
+    def __init__(self, model: Int8Model, params_f32: Dict[str, Dict], device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params_to(params_f32, self.device)
+        graph = model.graph
+        self.input_name = graph.input_names()[0]
+        self.outputs = graph.outputs
+        self._qmax = 2.0**model.bits_act - 1.0
+        # the packed exact int8 product of every lowered layer
+        self.products: Dict[str, Int8Product] = {}
+        # global_mean nodes whose one consumer is a lowered layer: they hand
+        # it the spatial sum, and it folds 1/n into its quantize
+        self._sum_only = {
+            n.name for n in graph
+            if n.op == "global_mean" and n.name not in graph.outputs
+            and len(graph.consumers(n.name)) == 1
+            and graph.consumers(n.name)[0] in model.layers
+            and graph[graph.consumers(n.name)[0]].inputs[0] == n.name
+        }
+        self._steps = [(n.name, self._build(n)) for n in graph if n.op != "input"]
+
+    def _t(self, a, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype).contiguous()
+
+    def _site_fq(self, node, i, val):
+        key = f"{node.name}:in{i}"
+        if key in self.model.act_ranges:
+            lo, hi = self.model.act_ranges[key]
+            val = fake_quant(val, lo, hi, bits=self.model.bits_act)
+        return val
+
+    def _build(self, node):
+        name = node.name
+        if node.op in ("conv", "linear") and name in self.model.layers:
+            return self._build_layer(node)
+        if node.op == "global_mean":
+            return self._build_mean(node)
+        p = self.params.get(name, {})
+        quantized = node.op in _SITE_OPS
+
+        def f32_op(env, node=node, p=p):
+            ins = [env[i] for i in node.inputs]
+            if quantized:
+                ins = [self._site_fq(node, i, v) for i, v in enumerate(ins)]
+            env[node.name] = apply_op(node, ins, p)
+
+        return f32_op
+
+    def _build_mean(self, node):
+        """Spatial mean of the site fake-quant, as XLA:CPU fuses it. Where
+        the site's range starts at 0, XLA drops the ``- 0`` and ``+ 0`` and
+        contracts each term's dequant multiply into the running sum:
+        ``acc = fma(q, s, acc)`` (in :func:`_spatial_sum`'s order).
+        Otherwise the fake-quant values are summed in order. ``1/n``
+        folds into a lowered consumer's quantize."""
+        name, src = node.name, node.inputs[0]
+        n_sum = name in self._sum_only
+        rng = self.model.act_ranges.get(f"{name}:in0")
+        contract = rng is not None and f32(rng[0]) == 0.0
+
+        def mean(env):
+            x = env[src]
+            if contract:
+                scale = f32(max((rng[1] - rng[0]) / self._qmax, 1e-8))
+                q = torch.round(torch.clamp(x * recip_xla(scale), 0.0, self._qmax))
+                acc = _spatial_sum(q, scale)
+            else:
+                acc = _spatial_sum(self._site_fq(node, 0, x))
+            n = x.shape[1] * x.shape[2]
+            env[name] = (acc, n) if n_sum else acc * f32(np.float32(1) / np.float32(n))
+
+        return mean
+
+    def _build_layer(self, node):
+        layer = self.model.layers[node.name]
+        prod = self.products[node.name] = pack_int8_product(layer.qweight, node, self.device)
+        wsum = self._t(layer.wsum, torch.int32)
+        # in_scale * w_scale in numpy f32, as the JAX engine's host product
+        comb = self._t(np.asarray(layer.in_scale * layer.w_scale, np.float32), torch.float32)
+        bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
+        zp, qmax = layer.in_zp, self._qmax
+        r = recip_xla(layer.in_scale)
+        src = node.inputs[0]
+        folded = src in self._sum_only
+
+        def lowered(env):
+            x = env[src]
+            if folded:  # round(mean / s): sum * f32(f32(1/n) * f32(1/s))
+                acc_sum, n = x
+                xq = quant_u8(acc_sum, mean_quant_recip(n, layer.in_scale), zp, 0.0, qmax)
+            else:
+                xq = quant_u8(x, r, zp, 0.0, qmax)
+            if node.op == "conv":
+                acc = int8_conv(xq, node, prod, zp)
+            else:
+                acc = int8_linear(xq, prod)
+            a = (acc - zp * wsum).to(torch.float32)
+            env[node.name] = a * comb if bias is None else fma_f32(a, comb, bias)
+
+        return lowered
+
+    def forward(self, x: torch.Tensor):
+        """``x``: f32 NHWC images -> f32 logits (or a tuple of outputs)."""
+        env: Dict[str, Any] = {self.input_name: x.to(self.device)}
+        with highest_precision():
+            for _, step in self._steps:
+                step(env)
+        outs = tuple(env[o] for o in self.outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+
+def _spatial_sum(x: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """Sum over (h, w) of NHWC f32, sequentially in f32, as XLA:CPU
+    reduces a spatial mean; with ``scale``, ``x`` holds grid values ``q``
+    and each term is ``fma(q, scale, acc)``. There, at heights 2, 4 and 8
+    LLVM unrolls the loop over rows: each row is its own sequential chain
+    and the rows are added as a halving tree (row ``i`` with row
+    ``i + H/2``, and so on; measured on XLA:CPU at widths 2-8)."""
+    _, H, W, _ = x.shape
+    if scale is not None and H in (2, 4, 8):
+        rows = [_spatial_sum(x[:, h:h + 1], scale) for h in range(H)]
+        while len(rows) > 1:
+            half = len(rows) // 2
+            rows = [rows[i] + rows[i + half] for i in range(half)]
+        return rows[0]
+    acc = x[:, 0, 0] if scale is None else x[:, 0, 0] * scale
+    for i in range(1, H * W):
+        v = x[:, i // W, i % W]
+        acc = acc + v if scale is None else fma_f32(v, scale, acc)
+    return acc
+
+
+def execute_int8(model: Int8Model, params_f32, x: torch.Tensor, device=None):
+    """The JAX package's ``execute_int8`` by name: builds an
+    :class:`Int8Net` and runs ``x`` through it. Build the module once to
+    run many batches. (The ``weights=`` override, the JAX engine's
+    tensor-parallel entry, is not ported.)"""
+    with torch.no_grad():
+        return Int8Net(model, params_f32, device=device)(x)

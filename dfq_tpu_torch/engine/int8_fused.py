@@ -11,13 +11,21 @@ conv epilogue, so inter-layer tensors stay int8:
   -> pw-project [-> add]`` whose site grids line up on K3
   (``fused_block_int8``) — the three kernels of
   ``dfq_tpu_torch/ops/cuda_int8.py``;
-- other convs (MobileNetV2's k3s2 stem and stride-2 depthwise convs) run
-  as exact integer convs (:func:`~dfq_tpu_torch.engine.int8._int8_conv`)
-  with the same epilogue in plain PyTorch;
+- other lowered convs (MobileNetV2's k3s2 stem and stride-2 depthwise
+  convs, ResNet-18's stem, 3x3 and downsample convs) run as exact integer
+  convs (:func:`~dfq_tpu_torch.engine.int8.int8_conv`) with the same
+  epilogue in plain PyTorch;
 - ReLU is a clamp at the zero point and ReLU6 a clamp at quant(6), both in
   the int domain; residual adds dequantize both operands through their
   site grids and requantize; folded BN/identity pass int8 through;
-- the spatial mean runs in f32, as in the JAX engine's fallback.
+- the spatial mean runs in f32, as in the JAX engine's fallback;
+- max pooling and padding stay in the int8 domain (max commutes with the
+  monotone grid; real 0 is the zero point), a concat of int8 inputs
+  requantizes each branch onto its site grid and then onto the
+  consumer's, and every other op (non-lowered conv/linear, concat,
+  pools, pad, resize, softmax, reshape, l2norm, permute) runs in f32 on
+  dequantized inputs with the engine's site fake-quant, as the JAX
+  engine's generic fallback.
 
 The int8 tensor carried on an edge uses the CONSUMER's site quantization
 params (:func:`_consumer_plan`). The f32 glue mirrors the forms XLA
@@ -36,10 +44,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dfq_tpu_torch.device import resolve_device
-from dfq_tpu_torch.engine.int8 import Int8Model, _int8_conv
+from dfq_tpu_torch.engine.int8 import Int8Model, int8_conv, pack_int8_product
+from dfq_tpu_torch.graph.executor import apply_op, highest_precision, params_to
 from dfq_tpu_torch.graph.ir import Graph
 from dfq_tpu_torch.ops import cuda_int8 as kernels
 from dfq_tpu_torch.ops.rounding import (
@@ -88,6 +98,8 @@ def _requant_i8(t: QTensor, scale: float, zp: int) -> torch.Tensor:
 
 # ops through which an output grid propagates backward unchanged
 _GRID_PASSTHROUGH = {"relu", "relu6", "bn", "identity", "dropout", "maxpool"}
+# one-input ops the f32 fallback fake-quantizes at input 0 (concat: all)
+_FALLBACK_SITE_OPS = {"conv", "linear", "global_mean", "interpolate", "softmax", "l2norm"}
 
 
 def _consumer_plan(graph: Graph, model: Int8Model) -> Dict[str, Optional[Grid]]:
@@ -237,11 +249,16 @@ class Int8FusedNet(nn.Module):
     plain versions on any device, to hold the CUDA kernels against them
     on the card.
 
+    ``params_f32`` supplies the f32 params of the layers that were not
+    lowered (and of ``l2norm``), as the JAX engine's ``params_f32``.
+
     ``kernel_sites`` lists ``(node, kernel name, packed operands)`` of
-    every kernel launch a forward makes when every fusable block fits.
+    every kernel launch a forward makes when every fusable block fits;
+    ``products`` the packed exact int8 product of every other lowered conv.
     """
 
-    def __init__(self, model: Int8Model, device=None, plain_kernels: bool = False):
+    def __init__(self, model: Int8Model, device=None, plain_kernels: bool = False,
+                 params_f32: Optional[Dict[str, Dict[str, Any]]] = None):
         super().__init__()
         if model.bits_act != 8:
             raise ValueError(
@@ -250,6 +267,7 @@ class Int8FusedNet(nn.Module):
             )
         self.device = resolve_device(device)
         self.model = model
+        self.params = params_to(params_f32 or {}, self.device)
         graph = model.graph
         self.plan = _consumer_plan(graph, model)
         self.blocks = _find_fusable_blocks(graph, model, self.plan)
@@ -261,6 +279,8 @@ class Int8FusedNet(nn.Module):
         impl = "plain" if plain_kernels else "packed"
         self._run = {k: getattr(kernels, f"{k}_{impl}") for k in kernels.LAUNCHES}
         self.kernel_sites: List[Tuple[str, str, Any]] = []
+        # the exact int8 product of every lowered conv that has no kernel
+        self.products: Dict[str, Any] = {}
         self.input_name = graph.input_names()[0]
         self.outputs = graph.outputs
         # grid of every node's output as this engine produces it (None:
@@ -303,7 +323,11 @@ class Int8FusedNet(nn.Module):
             return passthrough
         if op == "global_mean":
             return self._build_mean(node)
-        raise NotImplementedError(f"Int8FusedNet: op {op!r} ({name}) is not ported")
+        if op in ("maxpool", "pad") and grids[node.inputs[0]] is not None:
+            return self._build_i8_spatial(node)
+        if op == "concat" and self._concat_i8(node):
+            return self._build_concat(node)
+        return self._build_fallback(node)
 
     def _build_layer(self, node) -> Step:
         name = node.name
@@ -342,15 +366,14 @@ class Int8FusedNet(nn.Module):
 
             return dw
         # any other conv: exact integer conv + the epilogue in plain torch
-        wdtype = torch.float64 if self.device.type == "cpu" else torch.float32
-        qw = self._t(layer.qweight, wdtype)
+        prod = self.products[name] = pack_int8_product(layer.qweight, node, self.device)
         wsum = self._t(layer.wsum, torch.int32)
         comb_t = self._t(comb, torch.float32)
         bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
         zp = layer.in_zp
 
         def conv(env, done):
-            acc = _int8_conv(get(env), node, qw, zp) - zp * wsum
+            acc = int8_conv(get(env), node, prod, zp) - zp * wsum
             a = acc.to(torch.float32)
             # f32(acc) * comb + bias: one FMA under XLA:CPU
             out = a * comb_t if bias is None else fma_f32(a, comb_t, bias)
@@ -486,6 +509,78 @@ class Int8FusedNet(nn.Module):
 
         return mean
 
+    def _build_i8_spatial(self, node) -> Step:
+        """int8 max pooling (the int8 values pooled as f32 with -inf
+        padding, exact, and cast back: ``F.max_pool2d`` takes no int8 on
+        CUDA) and int8 padding with the zero point; the grid passes
+        through."""
+        name, src = node.name, node.inputs[0]
+        self._grids[name] = self._grids[src]
+        a = node.attrs
+
+        def spatial_i8(env, done):
+            v = env[src]
+            if node.op == "maxpool":
+                q = F.max_pool2d(v.q.permute(0, 3, 1, 2).float(), a["window"], a["stride"],
+                                 a["padding"]).to(torch.int8).permute(0, 2, 3, 1)
+            else:
+                t, b, l, r = a["pads"]
+                q = F.pad(v.q, (0, 0, l, r, t, b), value=v.zp)
+            env[name] = QTensor(q.contiguous(), v.scale, v.zp)
+
+        return spatial_i8
+
+    def _concat_i8(self, node) -> bool:
+        return (all(self._grids[i] is not None for i in node.inputs)
+                and self.plan.get(node.name) is not None
+                and all(_site_params(self.model, f"{node.name}:in{i}") is not None
+                        for i in range(len(node.inputs))))
+
+    def _build_concat(self, node) -> Step:
+        """int8 concat: each branch requantized onto its site grid, then
+        onto the consumer's (the two roundings of the f32 path)."""
+        name = node.name
+        sp = self.plan[name]
+        self._grids[name] = sp
+        sps = [_site_params(self.model, f"{name}:in{i}") for i in range(len(node.inputs))]
+        axis = node.attrs.get("axis", -1)
+
+        def concat_i8(env, done):
+            parts = []
+            for inp, spi in zip(node.inputs, sps):
+                q_site = QTensor(_requant_i8(env[inp], spi[0], spi[1]), spi[0], spi[1])
+                parts.append(_requant_i8(q_site, sp[0], sp[1]))
+            env[name] = QTensor(torch.cat(parts, dim=axis), sp[0], sp[1])
+
+        return concat_i8
+
+    def _build_fallback(self, node) -> Step:
+        """The JAX engine's generic f32 fallback: dequantized inputs, the
+        engine's own site fake-quant (quantize, then ``(q - zp) * s``) at
+        the inputs of conv/linear/concat/global_mean/interpolate/softmax/
+        l2norm, the f32 op, and the output quantized per the plan."""
+        name = node.name
+        self._grids[name] = self.plan.get(name)
+        p = self.params.get(name, {})
+        if node.op in ("conv", "linear") and "weight" not in p:
+            raise KeyError(f"Int8FusedNet: {name} is not lowered and params_f32 has no weight")
+        n_site = (len(node.inputs) if node.op == "concat" else
+                  1 if node.op in _FALLBACK_SITE_OPS else 0)
+        sps = [_site_params(self.model, f"{name}:in{i}") for i in range(n_site)]
+
+        def fallback(env, done):
+            ins = []
+            for i, inp in enumerate(node.inputs):
+                v = env[inp]
+                v = v.dequant() if isinstance(v, QTensor) else v
+                if i < n_site and sps[i] is not None:
+                    s, zp = sps[i]
+                    v = (_quantize_f32(v, s, zp).to(torch.float32) - zp) * f32(s)
+                ins.append(v)
+            self._emit(env, name, apply_op(node, ins, p))
+
+        return fallback
+
     def _site(self, name: str, kernel: str, op) -> None:
         if name not in self._fused_away:
             self.kernel_sites.append((name, kernel, op))
@@ -515,9 +610,10 @@ class Int8FusedNet(nn.Module):
         """``x``: f32 NHWC images on the module's device -> f32 logits."""
         env: Dict[str, Any] = {self.input_name: x}
         done: set = set()
-        for name, step in self._steps:
-            if name not in done:
-                step(env, done)
+        with highest_precision():
+            for name, step in self._steps:
+                if name not in done:
+                    step(env, done)
         outs = []
         for o in self.outputs:
             v = env[o]

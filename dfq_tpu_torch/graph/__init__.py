@@ -5,3 +5,4 @@ from dfq_tpu_torch.graph.ir import (  # noqa: F401
     node_sites,
     quant_sites,
 )
+from dfq_tpu_torch.graph.executor import execute  # noqa: F401

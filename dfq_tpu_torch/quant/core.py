@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dfq_tpu_torch.ops.rounding import f32, fma_f32, recip_xla
+
 
 def _is_torch(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) for x in xs)
@@ -63,15 +65,36 @@ def quant_params(min_value, max_value, bits: int = 8, symmetric: bool = False):
 
 def fake_quant(x: torch.Tensor, min_value, max_value, bits: int = 8,
                symmetric: bool = False) -> torch.Tensor:
-    """Quantize-dequantize a tensor with a per-tensor range
-    (add/div/clamp/round/mul/add order of the reference). Python or numpy
-    range bounds give a float64 scale that is rounded once to ``x``'s
-    dtype, as the JAX package's weak typing does."""
-    scale, offset, qmin, qmax = quant_params(min_value, max_value, bits, symmetric)
-    scale = torch.as_tensor(scale, device=x.device).to(x.dtype)
-    offset = torch.as_tensor(offset, device=x.device).to(x.dtype)
-    q = torch.round(torch.clamp((x - offset) / scale, qmin, qmax))
-    return q * scale + offset
+    """Quantize-dequantize an f32 tensor with a per-tensor range, in the
+    form XLA compiles the JAX package's ``fake_quant`` into under ``jit``
+    (pinned by ``tests/test_torch_rounding_forms.py``):
+
+    - a range of Python or numpy numbers is a constant of the program:
+      ``scale`` and ``offset`` come from :func:`quant_params` and are
+      rounded once to f32 (weak typing), and ``/ scale`` is a multiply by
+      ``f32(1 / f32(scale))``;
+    - a range of tensors (a per-sample min/max, computed from the data) is
+      computed on the device in f32, as JAX computes it from traced
+      arrays: ``scale = max(span * f32(1 / qmax), 1e-8)`` and a true
+      division;
+    - in both, the dequant ``q * scale + offset`` is one FMA.
+    """
+    if _is_torch(min_value, max_value):
+        mn = torch.as_tensor(min_value, dtype=torch.float32, device=x.device)
+        mx = torch.as_tensor(max_value, dtype=torch.float32, device=x.device)
+        if symmetric:
+            qmin, qmax = -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1.0
+            span, offset = torch.maximum(mx.abs(), mn.abs()), torch.zeros_like(mn)
+        else:
+            qmin, qmax = 0.0, 2.0**bits - 1.0
+            span, offset = mx - mn, mn
+        scale = (span * recip_xla(qmax)).clamp_min(1e-8)
+        q = torch.round(torch.clamp((x - offset) / scale, qmin, qmax))
+    else:
+        scale, offset, qmin, qmax = quant_params(min_value, max_value, bits, symmetric)
+        scale, offset = f32(scale), f32(offset)
+        q = torch.round(torch.clamp((x - offset) * recip_xla(scale), qmin, qmax))
+    return fma_f32(q, scale, offset)
 
 
 def fake_quant_np(x, min_value, max_value, bits: int = 8, symmetric: bool = False):

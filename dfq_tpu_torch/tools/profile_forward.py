@@ -1,14 +1,15 @@
 """Where the fused forward's time goes on the card.
 
-    python -m dfq_tpu_torch.tools.profile_forward [--batch 8 128]
+    python -m dfq_tpu_torch.tools.profile_forward [--model resnet18] [--batch 8 128]
 
-Builds the main path (full-width MobileNetV2, random weights from seed 0,
-the flagship DFQ config, ``Int8FusedNet`` on CUDA), warms it up, then
+Builds the main path (full-width MobileNetV2, or ResNet-18 with
+``--model resnet18``; random weights from seed 0, the flagship DFQ config,
+``Int8FusedNet`` on CUDA), warms it up, then
 traces 5 forwards per batch size with ``torch.profiler``. Prints
 one JSON line per batch: wall time per forward (host clock, synchronised),
 device busy time per forward (the sum of the traced kernels' durations),
 the device's idle share, and the kernels by total device time. Writes the
-Chrome trace of the last batch to ``chiprun_out/forward_trace.json``.
+Chrome trace of the last batch to ``chiprun_out/forward_trace_<model>.json``.
 """
 
 from __future__ import annotations
@@ -24,19 +25,20 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
-from dfq_tpu_torch.models import init_params, mobilenet_v2
+from dfq_tpu_torch.models import init_params, mobilenet_v2, resnet18
 from dfq_tpu_torch.pipeline import QuantConfig, prepare
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 128])
+    ap.add_argument("--model", choices=["mobilenet_v2", "resnet18"], default="mobilenet_v2")
     args = ap.parse_args(argv)
     steps, size = 5, 224
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: CUDA is not available")
 
-    graph = mobilenet_v2()
+    graph = mobilenet_v2() if args.model == "mobilenet_v2" else resnet18()
     cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
                       correction=True, bits_bias=16)
     model = lower_int8(prepare(graph, init_params(graph, seed=0, bn_stats="random"), cfg))
@@ -69,13 +71,13 @@ def main(argv=None) -> int:
         kernels.sort(reverse=True)
         busy = busy_us / steps / 1e3
         print(json.dumps({
-            "batch": batch, "device": torch.cuda.get_device_name(0),
+            "model": args.model, "batch": batch, "device": torch.cuda.get_device_name(0),
             "wall_ms": wall,
             "device_busy_ms": busy if busy > 0 else "not measured",
             "idle_share": 1 - busy / wall if busy > 0 else "not measured",
             "top": [{"ms": ms, "calls": n, "name": name[:90]} for ms, n, name in kernels[:12]],
         }), flush=True)
-        prof.export_chrome_trace(str(out_dir / "forward_trace.json"))
+        prof.export_chrome_trace(str(out_dir / f"forward_trace_{args.model}.json"))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Time K1, K2 and K3 at every MobileNetV2 main-path site, for one source tree.
+"""Time K1, K2 and K3 at every main-path site, for one source tree.
 
-    python3 dfq_tpu_torch/tools/time_sites.py --root TREE --out FILE.json
+    python3 dfq_tpu_torch/tools/time_sites.py [--model resnet18] --root TREE --out FILE.json
     python3 dfq_tpu_torch/tools/time_sites.py --summarize A.json B.json ...
 
 Run as a script (not with ``-m``), so that ``--root`` decides which
@@ -15,7 +15,9 @@ back-to-back calls from the host (median of 5 rounds after a warm-up),
 which reads the host's per-call cost wherever that is the larger, and
 ``device_ms`` from the same calls replayed as one CUDA graph.
 
-The whole forward is timed too, per batch, as ``chip_smoke.py`` times it:
+The network is full-width MobileNetV2 (the default) or ResNet-18
+(``--model resnet18``: its one kernel site is K1 at the ``fc``). The
+whole forward is timed too, per batch, as ``chip_smoke.py`` times it:
 between CUDA events around 5 forwards, 15 rounds (median, least, most).
 
 ``--summarize`` prints one row per site from several such files, in the
@@ -34,7 +36,7 @@ HERE_ROOT = Path(__file__).resolve().parents[2]
 KERNELS = ("matmul_int8_requant", "dw3x3_int8_requant", "fused_block_int8")
 
 
-def measure(root: Path, batches) -> dict:
+def measure(root: Path, batches, model: str = "mobilenet_v2") -> dict:
     import importlib.util
 
     import torch
@@ -45,14 +47,14 @@ def measure(root: Path, batches) -> dict:
     spec.loader.exec_module(cs)
     sys.path.insert(0, str(root))
     from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
-    from dfq_tpu_torch.models import init_params, mobilenet_v2
+    from dfq_tpu_torch import models
     from dfq_tpu_torch.ops import cuda_int8 as ck
     from dfq_tpu_torch.pipeline import QuantConfig, prepare
 
     if not torch.cuda.is_available():
         raise RuntimeError("time_sites: CUDA is not available")
-    graph = mobilenet_v2()
-    params = init_params(graph, seed=0, bn_stats="random")
+    graph = getattr(models, model)()
+    params = models.init_params(graph, seed=0, bn_stats="random")
     cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
                       correction=True, bits_bias=16)
     net = Int8FusedNet(lower_int8(prepare(graph, params, cfg)), device="cuda")
@@ -78,7 +80,7 @@ def measure(root: Path, batches) -> dict:
         with torch.no_grad():
             forward[str(batch)] = [cs.time_ms(lambda: net(xb), reps=5, rounds=1)
                                    for _ in range(15)]
-    return {"root": str(root), "card": cs.nvidia_smi_line(),
+    return {"root": str(root), "model": model, "card": cs.nvidia_smi_line(),
             "kind": torch.cuda.get_device_name(0), "sites": sites, "forward_ms": forward}
 
 
@@ -110,11 +112,12 @@ def main() -> int:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--batches", type=int, nargs="+", default=[8, 128])
     ap.add_argument("--summarize", nargs="+", metavar="JSON")
+    ap.add_argument("--model", choices=["mobilenet_v2", "resnet18"], default="mobilenet_v2")
     args = ap.parse_args()
     if args.summarize:
         summarize(args.summarize)
         return 0
-    result = measure(args.root.resolve(), args.batches)
+    result = measure(args.root.resolve(), args.batches, args.model)
     text = json.dumps(result, indent=1)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

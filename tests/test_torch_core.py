@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dfq_tpu.graph import ir as jir
@@ -111,7 +112,9 @@ def test_quant_params_and_fake_quant(lo, hi, symmetric):
         for a, b in zip(sj_j, st_t):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6)
         x = np.random.default_rng(bits).normal(0, 3, 4096).astype(np.float32)
-        want = np.asarray(jcore.fake_quant(jnp.asarray(x), lo, hi, bits, symmetric))
+        # the form XLA compiles it into under jit (reciprocal multiply, FMA)
+        want = np.asarray(jax.jit(lambda t: jcore.fake_quant(t, lo, hi, bits, symmetric))(
+            jnp.asarray(x)))
         got = tcore.fake_quant(torch.from_numpy(x), lo, hi, bits, symmetric).numpy()
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(
@@ -177,6 +180,8 @@ def test_import_isolation():
         "import dfq_tpu_torch.ops.cuda_int8, dfq_tpu_torch.engine.int8_fused\n"
         "import dfq_tpu_torch.pipeline, dfq_tpu_torch.models, dfq_tpu_torch.passes\n"
         "import dfq_tpu_torch.serve, dfq_tpu_torch.interop, dfq_tpu_torch.quant\n"
+        "import dfq_tpu_torch.graph.executor, dfq_tpu_torch.io, dfq_tpu_torch.cli.run_cls\n"
+        "import dfq_tpu_torch.data, dfq_tpu_torch.models.resnet\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

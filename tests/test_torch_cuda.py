@@ -271,3 +271,96 @@ def test_wrappers_check_their_arguments(dev):
                             device="cpu")
     with pytest.raises(ValueError, match="device"):
         ck.matmul_int8_requant_packed(x, cpu_op)
+
+
+# -- the exact int8 products of the engines' non-kernel convs and linears --
+
+def _node(cin, cout, k, stride=1, dilation=1, groups=1):
+    from dfq_tpu_torch.graph.ir import Node
+
+    return Node("c", "conv", ("x",), {
+        "in_ch": cin, "out_ch": cout, "kernel": (k, k), "stride": (stride, stride),
+        "padding": (k // 2 * dilation,) * 2, "dilation": (dilation, dilation),
+        "groups": groups})
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,dilation,groups,n,hw,route", [
+    (3, 64, 7, 2, 1, 1, 3, 20, "f32"),        # the ResNet stem: Cin 3, K = 147
+    (3, 32, 3, 2, 1, 1, 1, 9, "f32"),         # the MobileNetV2 stem
+    (96, 96, 3, 2, 1, 96, 2, 9, "f32"),       # stride-2 depthwise
+    (64, 64, 3, 1, 1, 1, 1, 4, "int_mm"),     # M = 16: padded above 16
+    (512, 60, 3, 1, 1, 1, 3, 3, "int_mm"),    # K = 4608, N not a multiple of 8
+    (128, 256, 1, 2, 1, 1, 8, 7, "int_mm"),   # a downsample conv
+    (130, 24, 3, 1, 2, 1, 2, 6, "int_mm"),    # K > 1024, Cin not a multiple of 8
+    (256, 64, 3, 1, 1, 2, 1, 4, "int_mm"),    # grouped, K = 1152 a group: a group at a time
+])
+def test_int8_conv_routes_exact_on_cuda(dev, cin, cout, k, stride, dilation, groups, n, hw,
+                                        route):
+    import torch.nn.functional as F
+
+    from dfq_tpu_torch.engine.int8 import int8_conv, pack_int8_product
+
+    rng = np.random.default_rng(cin * k + n)
+    node = _node(cin, cout, k, stride, dilation, groups)
+    qw = rng.integers(-128, 128, (cout, cin // groups, k, k)).astype(np.int8)
+    prod = pack_int8_product(qw, node, dev)
+    assert prod.route == route
+    x = _t(rng.integers(-128, 128, (n, hw, hw, cin)).astype(np.int8), dev)
+    zp = -21
+    got = int8_conv(x, node, prod, zp)
+    a = node.attrs
+    xp = F.pad(x.permute(0, 3, 1, 2).double(), (a["padding"][1],) * 2 + (a["padding"][0],) * 2,
+               value=zp)
+    want = F.conv2d(xp, torch.from_numpy(qw).to(dev).double(), stride=a["stride"],
+                    dilation=a["dilation"], groups=groups).permute(0, 2, 3, 1)
+    _equal(got, want.to(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1280, 1000), (3, 512, 1000), (8, 512, 1000),
+                                   (4, 8, 10), (17, 147, 13)])
+def test_int8_linear_exact_on_cuda(dev, m, k, n):
+    from dfq_tpu_torch.engine.int8 import int8_linear, pack_int8_product
+    from dfq_tpu_torch.graph.ir import Node
+
+    rng = np.random.default_rng(m + k)
+    qw = rng.integers(-128, 128, (n, k)).astype(np.int8)
+    prod = pack_int8_product(qw, Node("fc", "linear", ("x",), {}), dev)
+    assert prod.route == "int_mm"
+    x = _t(rng.integers(-128, 128, (m, k)).astype(np.int8), dev)
+    want = (x.double() @ torch.from_numpy(qw).to(dev).double().t()).to(torch.int32)
+    _equal(int8_linear(x, prod), want)
+
+
+def test_int8_maxpool_pad_on_cuda_equal_cpu(dev):
+    """The fused engine's int8 max pooling and padding on the card equal
+    the CPU's (through a lowered conv on each side)."""
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Layer, Int8Model
+    from dfq_tpu_torch.graph.ir import GraphBuilder
+
+    b = GraphBuilder()
+    x = b.input("data")
+    x = b.conv("c1", x, 3, 16, (3, 3), padding=(1, 1))
+    x = b.relu("r1", x)
+    mp = b.maxpool("mp", x, window=(3, 3), stride=(2, 2), padding=(1, 1))
+    x = b.pad("pd", mp, pads=(1, 2, 0, 1))
+    x = b.conv("c2", x, 16, 8, (3, 3))
+    y = b.conv("c3", mp, 16, 8, (1, 1))
+    graph = b.build([x, y])
+    rng = np.random.default_rng(0)
+
+    def layer(o, i, k, scale, zp):
+        qw = rng.integers(-128, 128, (o, i, k, k)).astype(np.int8)
+        return Int8Layer(qw, np.full(o, 2e-3, np.float32), rng.normal(0, 0.1, o).astype(
+            np.float32), qw.astype(np.int32).reshape(o, -1).sum(1), scale, zp)
+
+    model = Int8Model(graph, {"c1": layer(16, 3, 3, 0.0185, -14), "c2": layer(8, 16, 3, 0.05, -128),
+                              "c3": layer(8, 16, 1, 0.05, -128)},
+                      {"c1:in0": (-2.1179, 2.64), "c2:in0": (0.0, 12.75), "c3:in0": (0.0, 12.75)})
+    xs = torch.from_numpy(rng.normal(0, 1, (3, 17, 15, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = Int8FusedNet(model, device="cpu")(xs)
+        net = Int8FusedNet(model, device=dev)
+        assert net._grids["mp"] is not None and net._grids["pd"] is not None
+        got = net(xs.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

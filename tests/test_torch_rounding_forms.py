@@ -13,9 +13,12 @@ import re
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dfq_tpu.ops import pallas_int8 as pk
+from dfq_tpu.quant import core as jcore
+from dfq_tpu_torch.quant import core as tcore
 from dfq_tpu_torch.ops.rounding import fma_f32, mean_quant_recip, recip_host, recip_xla
 
 torch.set_num_threads(1)
@@ -91,3 +94,82 @@ def test_mean_then_quantize_folds_reciprocals():
     assert np.array_equal(mean, acc * (np.float32(1) / np.float32(49))), (
         "XLA's spatial mean is no longer a sequential f32 sum times f32(1/n): "
         "update Int8FusedNet._build_mean")
+
+
+def _with_ties(x, lo, hi, bits, symmetric):
+    """``x`` plus inputs whose scaled value ``(x - offset) * f32(1/scale)``
+    is exactly a half integer in f32 (round-half-to-even decides them)."""
+    scale, offset, qmin, qmax = jcore.quant_params(lo, hi, bits, symmetric)
+    s, o = np.float32(scale), np.float32(offset)
+    r = np.float32(recip_xla(float(s)))
+    k = np.arange(qmin, qmax, dtype=np.float32) + np.float32(0.5)
+    cand = (o + k / r).astype(np.float32)
+    cand = np.concatenate([np.nextafter(cand, np.float32(-np.inf)), cand,
+                           np.nextafter(cand, np.float32(np.inf))])
+    v = (cand - o) * r
+    ties = cand[v == np.floor(v) + np.float32(0.5)]
+    assert ties.size, "no exact ties found"
+    return np.concatenate([x, ties]).astype(np.float32), ties.size
+
+
+@pytest.mark.parametrize("bits", [4, 6, 8])
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("lo,hi", [(-2.3718, 7.91234), (-5.0, 1.0), (0.0, 6.0)])
+def test_fake_quant_is_the_jitted_form(lo, hi, bits, symmetric):
+    """The port's ``fake_quant`` is bit-equal to ``jax.jit(fake_quant)``:
+    ``(x - offset) * f32(1/scale)``, clip, round, and the dequant
+    ``q * scale + offset`` as one FMA; ties included."""
+    rng = np.random.default_rng(bits)
+    x, n_ties = _with_ties(rng.normal(1.0, 4.0, 1 << 17).astype(np.float32),
+                           lo, hi, bits, symmetric)
+    want = np.asarray(jax.jit(lambda t: jcore.fake_quant(t, lo, hi, bits, symmetric))(
+        jnp.asarray(x)))
+    got = tcore.fake_quant(torch.from_numpy(x), lo, hi, bits, symmetric).numpy()
+    bad = int((got != want).sum())
+    assert bad == 0, (f"{bad} of {x.size} outputs ({n_ties} ties) differ from "
+                      f"jax.jit(fake_quant): update quant/core.py:fake_quant")
+    # the port's earlier form (true division, separate multiply and add) is
+    # observably different on the asymmetric grids
+    s, o, qmin, qmax = tcore.quant_params(lo, hi, bits, symmetric)
+    old = (torch.round(torch.clamp((torch.from_numpy(x) - float(o)) / float(s), qmin, qmax))
+           * np.float32(s) + np.float32(o)).numpy()
+    if not symmetric and bits == 8:
+        assert not np.array_equal(old, want)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_fake_quant_with_a_data_range_is_the_traced_form(symmetric):
+    """A range computed from the data (the simulator's ``self_quant``) is a
+    traced value under jit: f32 scale ``span * f32(1/qmax)``, true
+    division, FMA dequant."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(0.5, 3.0, 1 << 17).astype(np.float32)
+    for lo, hi in ((-2.3718, 7.91234), (-5.0, 1.0)):
+        for bits in (4, 8):
+            want = np.asarray(jax.jit(
+                lambda t, a, b: jcore.fake_quant(t, a, b, bits, symmetric))(
+                jnp.asarray(x), jnp.float32(lo), jnp.float32(hi)))
+            got = tcore.fake_quant(torch.from_numpy(x), torch.tensor(lo), torch.tensor(hi),
+                                   bits, symmetric).numpy()
+            assert np.array_equal(got, want), (lo, hi, bits, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (2, 3), (3, 3), (4, 4), (7, 7), (8, 5)])
+def test_spatial_mean_of_a_fake_quant_is_xla_order(h, w):
+    """``jnp.mean(fake_quant(x, 0, hi))`` over (h, w), the baseline engine's
+    global mean, sums ``fma(q, s, acc)`` in XLA:CPU's order: in order over
+    (h, w), but at heights 2, 4 and 8 a chain per row and the rows added
+    as a halving tree (``Int8Net._build_mean``)."""
+    from dfq_tpu_torch.engine.int8 import _spatial_sum
+
+    rng = np.random.default_rng(h * 10 + w)
+    s = np.float32(0.0237)
+    x = rng.uniform(0, 260 * s, (2, h, w, 512)).astype(np.float32)
+    hi = float(255 * s)
+    want = np.asarray(jax.jit(lambda t: jnp.sum(jcore.fake_quant(t, 0.0, hi), axis=(1, 2)))(
+        jnp.asarray(x)))
+    scale = np.float32(hi / 255.0)
+    q = torch.round(torch.clamp(torch.from_numpy(x) * recip_xla(float(scale)), 0.0, 255.0))
+    got = _spatial_sum(q, float(scale)).numpy()
+    bad = int((got != want).sum())
+    assert bad == 0, f"{bad} of {want.size} sums differ from XLA's order: update _spatial_sum"
