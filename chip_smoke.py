@@ -50,12 +50,13 @@ Phases, in order; any failure exits non-zero:
    with the same function on the CPU (the float model to ``SIM_RTOL`` of
    the largest logit, which TF32 or an inexact conv algorithm would break;
    with the fake-quant sites to ``SIM_FQ_RTOL``, the CPU test's limit);
-9. every conv that has no kernel, at every call site of both models, at
-   batch 8 and 3 and, at each model's largest sites, batch 128, through
-   the packed product each engine holds (``products``), against
-   ``F.conv2d`` in float64 on the card (exact: every sum is below 2^53),
-   and the baseline engine's linear layers against a float64 product: the
-   int32 accumulators must be bit-equal;
+9. every conv that has no kernel, at every call site of the four models,
+   at two batches (8 and 3; DeepLab 4 and 3) and, at each model's largest
+   sites, a larger one (128; DeepLab 8), through the packed product each
+   engine holds (``products``), against ``F.conv2d`` in float64 on the
+   card (exact: every sum is below 2^53), and the baseline engine's
+   linear layers against a float64 product: the int32 accumulators must
+   be bit-equal;
 10. the classification entry point in-process (``run_cls --resnet
    --quantize --relu --equalize``), once with ``--engine fused`` and once
    with ``--engine int8``, each saving its artifact: the artifact reloaded
@@ -64,10 +65,40 @@ Phases, in order; any failure exits non-zero:
 11. times (CUDA events, medians): ResNet-18's forward at batch 8 and 128
    through the fused engine, the baseline engine and the simulator; K1 at
    ResNet-18's ``fc`` beside its bound and ``torch._int_mm``; MobileNetV2's
-   three engines at batch 128.
+   three engines at batch 128; SSD-Lite's fused forward at batch 1, 8 and
+   128, its baseline and simulator at 8, ``decode_nms_batch`` at 1 and
+   128; DeepLab's fused forward at batch 4 and 8, its baseline and
+   simulator at 4; the peak device memory of each of these forwards; every
+   kernel at every SSD-Lite site (batch 8 and 128) and DeepLab site
+   (batch 4; its classifier also at 8 and 128) beside its bound, its plain version and a yardstick (K1's
+   ``dp4a`` sites, whose N is not a multiple of 8, beside ``torch._int_mm``
+   on weights zero-padded to the next multiple of 8);
+12. SSD-Lite 300x300 (21 classes, 3000 priors), random weights from the
+   seed, the flagship config with the detection flags: 30 / 11 / 12
+   kernel sites, K1 at 24 through its ``mma`` variant and at the 6 class
+   heads (N = 126) through ``dp4a``, K2 ``strip``, K3 ``mma``; every
+   kernel equal to its plain version at every site at batch 8 and 3 and,
+   at each kernel's largest sites and every ``dp4a`` site, 128; the batch-8
+   forward bit-equal to the plain-kernel net, no plain version run through
+   a wrapper; the baseline engine on the card equal to itself on the CPU
+   within ``ENGINE_RTOL`` of the largest output, confidences summing to 1;
+   the fused and baseline engines within the JAX suite's mean bounds of
+   each other; ``decode_nms_batch`` on the card keeping the same boxes in
+   the same order as the host NMS on the same outputs; ``run_ssd --engine
+   fused --device-nms`` and ``--engine int8 --save-artifact`` in-process,
+   the reloaded artifact bit-equal;
+13. DeepLab-v3+ MobileNetV2 513x513 (output stride 16, 21 classes), batch
+   4, the same weights and config: 38 K1 sites (37 ``mma``, the classifier
+   ``dp4a``), K2 and K3 never; every site equal to its plain version at
+   batch 4 and 3 (the classifier also at 8 and 128); the forward
+   bit-equal to the plain-kernel net, the per-pixel argmax taken on the
+   card; the baseline engine on the card against the CPU as in 12, the
+   two engines' argmax agreeing as the JAX suite holds it; ``run_seg
+   --engine fused`` and ``--engine int8 --save-artifact`` in-process, the
+   reloaded artifact bit-equal.
 
-It prints the ``kernels`` JSON line (with each kernel's launches on each
-model's path), then the card line, then as the last line ``{"ok": true,
+Phases 12 and 13 run after 10 and before 11. It prints the ``kernels``
+JSON line (with each kernel's launches on each model's path), then the card line, then as the last line ``{"ok": true,
 "device": {...}}``. Per-site details go to ``chiprun_out/chip_smoke.json``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -95,6 +126,14 @@ GOLDEN_TOL = 1e-5  # tests/test_golden_artifact.py:37
 # moves a value a grid step: tests/test_torch_executor.py's limit)
 SIM_RTOL = 1e-4
 SIM_FQ_RTOL = 2e-2
+# the baseline engine on the card vs on the CPU, as a share of the largest
+# output: its int8 products are exact and its f32 glue sums in the same
+# order, but a resize's matmul may sum its taps in another order
+ENGINE_RTOL = 1e-5
+SSD_SIZE = 300
+SEG_SIZE = 513
+SEG_BATCH = 4  # the segmentation path's batch (the CLI's --batch-size)
+DET = {"delete_single": True, "is_detection": True}  # run_ssd's QuantConfig flags
 
 # (memory bytes/s, dense int8 ops/s) by card; NVIDIA data sheets
 _PEAKS = {
@@ -150,6 +189,15 @@ def site_inputs(graph, batch: int, size: int):
             (kh, kw), (sh, sw), (ph, pw) = a["window"], a["stride"], a["padding"]
             shapes[node.name] = (s[0], (s[1] + 2 * ph - kh) // sh + 1,
                                  (s[2] + 2 * pw - kw) // sw + 1, s[3])
+        elif node.op == "pad":
+            t, b, l, r = a["pads"]
+            shapes[node.name] = (s[0], s[1] + t + b, s[2] + l + r, s[3])
+        elif node.op == "global_pool":
+            shapes[node.name] = (s[0], 1, 1, s[3])
+        elif node.op == "interpolate":
+            shapes[node.name] = (s[0], *a["size"], s[3])
+        elif node.op == "concat" and a.get("axis", -1) in (-1, 3):
+            shapes[node.name] = s[:-1] + (sum(shapes[i][-1] for i in node.inputs),)
         else:
             shapes[node.name] = s
     return shapes
@@ -249,24 +297,29 @@ INT_MM_RULE = "torch._int_mm needs M > 16 and K, N multiples of 8"
 
 def library_call(kernel: str, op, x):
     """One PyTorch call computing the kernel's core, never used by the
-    port: the int8 product for K1, the f32 depthwise MAC for K2; None
-    where there is none (K3) or the shape is outside ``INT_MM_RULE``."""
+    port: the int8 product for K1 (with the weight's columns zero-padded
+    to the next multiple of 8 where N is not one: ``padded`` is then
+    True), the f32 depthwise MAC for K2. Returns ``(call, padded)``, or
+    ``(None, False)`` where there is none (K3) or the shape is outside
+    ``INT_MM_RULE``'s M and K."""
     import torch
     import torch.nn.functional as F
 
     if kernel == "matmul_int8_requant":
         M, K = x.shape
         N = op.w.shape[0]
-        if M <= 16 or K % 8 or N % 8:
-            return None
-        w_kn = op.w.t()  # column-major [K, N], cuBLASLt's layout
-        return lambda: torch._int_mm(x, w_kn)
+        if M <= 16 or K % 8:
+            return None, False
+        n8 = -(-N // 8) * 8
+        w = op.w if n8 == N else F.pad(op.w, (0, 0, 0, n8 - N))
+        w_kn = w.t()  # column-major [K, N], cuBLASLt's layout
+        return (lambda: torch._int_mm(x, w_kn)), n8 != N
     if kernel == "dw3x3_int8_requant":
         C = x.shape[-1]
         xf = x.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
         wf = op.taps.t().reshape(C, 1, 3, 3).float().contiguous()
-        return lambda: F.conv2d(xf, wf, padding=1, groups=C)
-    return None
+        return (lambda: F.conv2d(xf, wf, padding=1, groups=C)), False
+    return None, False
 
 
 def ptxas_report(log: Path):
@@ -296,16 +349,16 @@ def ptxas_report(log: Path):
     return out
 
 
-def flagship(graph_fn):
-    """The flagship DFQ config on a model with random weights from the seed:
-    ``(prepared, lowered, residual f32 params)``."""
+def flagship(graph_fn, **flags):
+    """The flagship DFQ config (plus ``flags``) on a model with random
+    weights from the seed: ``(prepared, lowered, residual f32 params)``."""
     from dfq_tpu_torch.engine import lower_int8
     from dfq_tpu_torch.models import init_params
     from dfq_tpu_torch.pipeline import QuantConfig, prepare
 
     graph = graph_fn()
     cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
-                      correction=True, bits_bias=16)
+                      correction=True, bits_bias=16, **flags)
     prep = prepare(graph, init_params(graph, seed=0, bn_stats="random"), cfg)
     model = lower_int8(prep)
     return prep, model, {k: v for k, v in prep.params.items() if k not in model.layers}
@@ -318,6 +371,122 @@ def forward_ms(fn, x, rounds: int = 7) -> float:
     with torch.no_grad():
         return float(np.median([time_ms(lambda: fn(x), reps=5, rounds=1)
                                 for _ in range(rounds)]))
+
+
+def site_input(graph, size: int, kernel: str, name: str, batch: int, gen):
+    """Random int8 input of one kernel site at ``batch`` (K1: ``[M, K]``)."""
+    import torch
+
+    shape = site_inputs(graph, batch, size)[graph[name].inputs[0]]
+    x = torch.randint(-128, 128, shape, generator=gen, device=DEVICE, dtype=torch.int8)
+    return x.reshape(-1, shape[-1]) if kernel == "matmul_int8_requant" else x
+
+
+def wrappers_of(ck) -> dict:
+    """Each kernel's wrapper and plain version."""
+    return {
+        "matmul_int8_requant": (ck.matmul_int8_requant_packed, ck.matmul_int8_requant_plain),
+        "dw3x3_int8_requant": (ck.dw3x3_int8_requant_packed, ck.dw3x3_int8_requant_plain),
+        "fused_block_int8": (ck.fused_block_int8_packed, ck.fused_block_int8_plain),
+    }
+
+
+def hold_sites(graph, size: int, checks, wrappers, max_err: dict, gen) -> None:
+    """Each ``((node, kernel, op), batch)`` of ``checks`` through the kernel
+    and its plain version on the same random input: bit-equal, or raise.
+    ``max_err`` keeps each kernel's largest difference."""
+    import torch
+
+    for (name, kernel, op), batch in checks:
+        wrap, plain = wrappers[kernel]
+        x = site_input(graph, size, kernel, name, batch, gen)
+        got = wrap(x, op)
+        torch.cuda.synchronize()
+        want = plain(x, op)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{kernel} at {name}: {got.dtype}{tuple(got.shape)} "
+                                 f"vs plain {want.dtype}{tuple(want.shape)}")
+        err = float((got.double() - want.double()).abs().max())
+        max_err[kernel] = max(max_err[kernel], err)
+        if not torch.equal(got, want):
+            n_bad = int((got != want).sum())
+            raise AssertionError(f"{kernel} at {name} {tuple(x.shape)}: {n_bad} elements "
+                                 f"differ from the plain version (max abs {err})")
+        del x, got, want
+
+
+def time_site(kernel: str, op, x, wrappers, peaks, reps: int = 20, rounds: int = 5) -> dict:
+    """One kernel site's times beside its bound, its plain version and its
+    library yardstick."""
+    wrap, plain = wrappers[kernel]
+    mem_bw, int8_peak = peaks
+    out = wrap(x, op)
+    nbytes, nops = work(kernel, op, tuple(x.shape), out.element_size())
+    lib, padded = library_call(kernel, op, x)
+    bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
+    return {"kernel": kernel, "shape": list(x.shape),
+            "ms": time_ms(lambda: wrap(x, op), reps, rounds),
+            "device_ms": graph_ms(lambda: wrap(x, op), reps, rounds),
+            "plain_ms": time_ms(lambda: plain(x, op), reps=3, rounds=3),
+            "library_ms": None if lib is None else time_ms(lib, reps, rounds),
+            "library_device_ms": None if lib is None else graph_ms(lib, reps, rounds),
+            "library_padded": padded, "bytes": nbytes, "ops": nops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def print_sites(sites) -> None:
+    print("per site: batch node shape | ms (host calls) | ms (device, graph replay) "
+          "| bound ms (by) | library ms (host calls / device) | device ms / bound "
+          "[| K3: split model ms (this design's units at their rates), device ms / it]")
+    for s in sites:
+        lib = ("none" if s["library_ms"] is None
+               else f"{s['library_ms']:.4f} / {s['library_device_ms']:.4f}"
+               + (" (N padded to a multiple of 8)" if s["library_padded"] else ""))
+        split = s.get("split_bound_ms")
+        print(f"  b{s['batch']} {s['node']} {tuple(s['shape'])} | {s['ms']:.4f} | "
+              f"{s['device_ms']:.4f} | {s['bound_ms']:.4f} ({s['bound_by']}) | {lib} | "
+              f"{s['device_ms'] / s['bound_ms']:.1f}x"
+              + ("" if split is None else f" | {split:.4f}, {s['device_ms'] / split:.1f}x"),
+              flush=True)
+
+
+def forward_peak(fn, x):
+    """``(median ms, peak device bytes)`` of ``fn(x)``: ``forward_ms`` and
+    ``max_memory_allocated`` over one more forward from a reset peak."""
+    import torch
+
+    ms = forward_ms(fn, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fn(x)
+    torch.cuda.synchronize()
+    return ms, int(torch.cuda.max_memory_allocated())
+
+
+def hold_engines_card_vs_cpu(label, model, residual, x, rtol: float) -> dict:
+    """The baseline engine on the card against the same engine on the CPU
+    on the same images, each output within ``rtol`` of its largest value."""
+    import torch
+
+    from dfq_tpu_torch.engine import Int8Net
+
+    with torch.no_grad():
+        card = Int8Net(model, residual, device=DEVICE)(x)
+        cpu = Int8Net(model, residual, device="cpu")(x.cpu())
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    out = []
+    for a, b in zip(card, cpu):
+        a, b = a.cpu().numpy(), b.numpy()
+        d, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
+        out.append({"max_abs": d, "max_out": peak})
+        if not np.isfinite(a).all() or d > rtol * peak:
+            raise AssertionError(f"{label}: baseline engine card vs CPU max abs {d} > "
+                                 f"{rtol} x {peak}")
+    return {"outputs": out}
 
 
 def phase_golden(root: Path) -> dict:
@@ -411,10 +580,10 @@ def phase_resnet(ck, images) -> dict:
                        "argmax": lg.argmax(-1).tolist()}}
 
 
-def conv_work(graph, name: str, batch: int) -> int:
-    """MACs of one conv at ``batch`` (224x224)."""
+def conv_work(graph, name: str, batch: int, size: int) -> int:
+    """MACs of one conv at ``batch`` and input ``size``."""
     node = graph[name]
-    out = site_inputs(graph, batch, SIZE)[name]
+    out = site_inputs(graph, batch, size)[name]
     a = node.attrs
     return int(np.prod(out)) * a["in_ch"] // a["groups"] * a["kernel"][0] * a["kernel"][1]
 
@@ -422,8 +591,10 @@ def conv_work(graph, name: str, batch: int) -> int:
 def phase_exact_products(paths, gen) -> dict:
     """9. Every packed int8 product that is not a kernel (every lowered conv
     and linear of the baseline engine, every non-kernel conv of the fused
-    engine) against float64 on the card, at batch 8 and 3 and, at the
-    largest site of each route of each model, 128: bit-equal int32."""
+    engine) against float64 on the card, at two batches and, at the
+    largest site of each route of each model, a larger one: bit-equal
+    int32. ``paths``: ``(model, graph, [(engine name, engine)], input
+    size, (batch, odd batch, large batch))``."""
     import torch
     import torch.nn.functional as F
 
@@ -431,19 +602,20 @@ def phase_exact_products(paths, gen) -> dict:
 
     n_checked = 0
     routes = {}
-    for model_name, graph, engines in paths:
-        names = sorted({n for _, e in engines for n in e.products},
-                       key=lambda n: [x.name for x in graph].index(n))
+    for model_name, graph, engines, size, (b_main, b_odd, b_big) in paths:
+        order = {x.name: i for i, x in enumerate(graph)}
+        names = sorted({n for _, e in engines for n in e.products}, key=order.get)
         route = {n: next(e.products[n].route for _, e in engines if n in e.products)
                  for n in names}
         convs = [n for n in names if graph[n].op == "conv"]
-        big = {max((n for n in convs if route[n] == r), key=lambda n: conv_work(graph, n, 1))
+        big = {max((n for n in convs if route[n] == r),
+                   key=lambda n: conv_work(graph, n, 1, size))
                for r in set(route[n] for n in convs)}
-        checks = [(n, b) for b in (BATCH, ODD_BATCH) for n in names] + [
-            (n, BIG_BATCH) for n in sorted(big)]
+        checks = [(n, b) for b in (b_main, b_odd) for n in names] + [
+            (n, b_big) for n in sorted(big)]
         for name, batch in checks:
             node = graph[name]
-            shape = site_inputs(graph, batch, SIZE)[node.inputs[0]]
+            shape = site_inputs(graph, batch, size)[node.inputs[0]]
             x = torch.randint(-128, 128, shape, generator=gen, device=DEVICE,
                               dtype=torch.int8)
             layer = engines[0][1].model.layers[name]
@@ -455,6 +627,7 @@ def phase_exact_products(paths, gen) -> dict:
                 xp = F.pad(x.permute(0, 3, 1, 2).double(), (pw, pw, ph, ph), value=zp)
                 want = F.conv2d(xp, qw, stride=a["stride"], dilation=a["dilation"],
                                 groups=a["groups"]).permute(0, 2, 3, 1).to(torch.int32)
+                del xp
             else:
                 want = (x.double() @ qw.t()).to(torch.int32)
             del qw
@@ -472,12 +645,263 @@ def phase_exact_products(paths, gen) -> dict:
                         f"{tuple(shape)}: {bad} int32 accumulators differ from float64")
                 n_checked += 1
                 routes[f"{model_name}/{name}"] = prod.route
+                del got
             del x, want
         print(f"{model_name}: {len(names)} exact int8 products (routes "
               f"{ {r: sum(1 for n in names if route[n] == r) for r in set(route.values())} }) "
-              f"bit-equal to float64 at batch {BATCH} and {ODD_BATCH}, and at batch "
-              f"{BIG_BATCH} at {sorted(big)}", flush=True)
+              f"bit-equal to float64 at batch {b_main} and {b_odd}, and at batch "
+              f"{b_big} at {sorted(big)}", flush=True)
     return {"checks": n_checked, "routes": routes}
+
+
+def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
+    """Every site at each of ``batches``; at ``big_batch`` the K1 site with
+    the most rows, every K1 site whose N is not a multiple of 8 (the
+    ``dp4a`` variant), the largest K2 site, and K3's first and last."""
+    by = {k: [s for s in net.kernel_sites if s[1] == k] for k in ck.LAUNCHES}
+    shapes1 = site_inputs(graph, 1, size)
+
+    def elems(site):
+        return int(np.prod(shapes1[graph[site[0]].inputs[0]]))
+
+    def rows(site):
+        return int(np.prod(shapes1[graph[site[0]].inputs[0]][:-1]))
+
+    big = []
+    if by["matmul_int8_requant"]:
+        k1 = by["matmul_int8_requant"]
+        big.append(max(k1, key=rows))
+        big += [s for s in k1 if s[2].w.shape[0] % 8 and s not in big]
+    if by["dw3x3_int8_requant"]:
+        big.append(max(by["dw3x3_int8_requant"], key=elems))
+    if by["fused_block_int8"]:
+        big += [by["fused_block_int8"][0], by["fused_block_int8"][-1]]
+    return [(s, b) for b in batches for s in net.kernel_sites] + [(s, big_batch) for s in big]
+
+
+def launch_forward(ck, net, x):
+    """One forward of ``net`` with the counts reset just before it:
+    ``(output, launches, variants)``."""
+    import torch
+
+    with torch.no_grad():
+        ck.reset_counts()
+        out = net(x)
+        torch.cuda.synchronize()
+    return out, dict(ck.LAUNCHES), {k: dict(v) for k, v in ck.VARIANTS.items()}
+
+
+def equal_outputs(label, got, want) -> None:
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            d = float((a.double() - b.double()).abs().max())
+            raise AssertionError(f"{label}: max abs {d}")
+
+
+def host_keep_sets(conf, loc, priors, prob_threshold, iou_threshold, top_k):
+    """The host NMS of ``Predictor`` for one image: ``{class: [K, 5]}``."""
+    from dfq_tpu_torch.detection import box_utils
+
+    boxes = box_utils.center_form_to_corner_form(
+        box_utils.convert_locations_to_boxes(loc, priors, 0.1, 0.2))
+    kept = {}
+    for c in range(1, conf.shape[1]):
+        m = conf[:, c] > prob_threshold
+        if m.any():
+            bp = np.concatenate([boxes[m], conf[m, c, None]], 1).astype(np.float32)
+            kept[c] = box_utils.hard_nms(bp, iou_threshold, top_k=top_k, candidate_size=200)
+    return kept
+
+
+def phase_ssd(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
+    """12. SSD-Lite 300x300 through the fused engine, the baseline engine,
+    device NMS and its entry point."""
+    import shutil
+
+    import torch
+
+    from dfq_tpu_torch.cli import run_ssd
+    from dfq_tpu_torch.detection.device_nms import decode_nms_batch
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.io import load_artifact
+    from dfq_tpu_torch.models import mobilenet_v2_ssd_lite
+    from dfq_tpu_torch.models.ssd import SSDConfig, quantized_priors
+
+    prep, model, residual = flagship(mobilenet_v2_ssd_lite, **DET)
+    graph = model.graph
+    net = Int8FusedNet(model, device=DEVICE, params_f32=residual)
+    ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True, params_f32=residual)
+    base = Int8Net(model, residual, device=DEVICE)
+    kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
+    if kinds != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11, "fused_block_int8": 12}:
+        raise AssertionError(f"SSD-Lite kernel sites {kinds}")
+    checks = kernel_site_checks(net, graph, SSD_SIZE, (BATCH, ODD_BATCH), BIG_BATCH, ck)
+    hold_sites(graph, SSD_SIZE, checks, wrappers, max_err, gen)
+    big = sorted({c[0][0] for c in checks if c[1] == BIG_BATCH})
+    print(f"SSD-Lite: kernels == plain at all {len(net.kernel_sites)} sites at batch {BATCH} "
+          f"and {ODD_BATCH}, and at batch {BIG_BATCH} at {big}", flush=True)
+
+    config = SSDConfig()
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 255, (BIG_BATCH, SSD_SIZE, SSD_SIZE, 3)).astype(np.float32)
+    # the predictor's normalization of a 300x300 image
+    inputs = (images - np.float32(127.0)) / np.float32(128.0)
+    x8 = torch.from_numpy(inputs[:BATCH]).to(DEVICE)
+    (conf, loc), launches, variants = launch_forward(ck, net, x8)
+    if launches != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11, "fused_block_int8": 12}:
+        raise AssertionError(f"SSD-Lite launches {launches}")
+    if variants != {"matmul_int8_requant": {"mma": 24, "dp4a": 6},
+                    "dw3x3_int8_requant": {"strip": 11, "general": 0},
+                    "fused_block_int8": {"mma": 12, "general": 0}}:
+        raise AssertionError(f"SSD-Lite kernel variants {variants}")
+    if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
+        raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
+    with torch.no_grad():
+        equal_outputs("SSD-Lite vs plain versions", (conf, loc), ref_net(x8))
+        b_conf, b_loc = base(x8)
+    c, l, bc, bl = (t.cpu().numpy() for t in (conf, loc, b_conf, b_loc))
+    if c.shape != (BATCH, 3000, 21) or l.shape != (BATCH, 3000, 4) or not (
+            np.isfinite(c).all() and np.isfinite(l).all()):
+        raise AssertionError(f"SSD-Lite outputs {c.shape} {l.shape}")
+    sums = float(np.abs(c.sum(-1) - 1).max())
+    if sums > 1e-4:
+        raise AssertionError(f"SSD-Lite confidences sum to 1 within {sums}")
+    card_cpu = hold_engines_card_vs_cpu("SSD-Lite", model, residual, x8, ENGINE_RTOL)
+    # the JAX suite's bounds between an int8 engine and the simulator
+    # (tests/test_int8_seg_det.py:176-181), here between the two engines
+    conf_mean, loc_mean = float(np.abs(c - bc).mean()), float(np.abs(l - bl).mean())
+    if conf_mean >= 0.05 or loc_mean >= 0.5 * float(np.abs(bl).mean()):
+        raise AssertionError(f"SSD-Lite fused vs baseline: conf mean {conf_mean}, "
+                             f"loc mean {loc_mean}")
+
+    # device NMS on the card against the host NMS on the same outputs
+    priors = quantized_priors(config)
+    kw = dict(prob_threshold=0.01, iou_threshold=0.45, candidate_size=200, top_k=200)
+    db, ds, dv = (t.cpu().numpy() for t in decode_nms_batch(
+        conf, loc, torch.from_numpy(priors).to(DEVICE), **kw))
+    n_kept = 0
+    for i in range(BATCH):
+        host = host_keep_sets(c[i], l[i], priors, 0.01, 0.45, 200)
+        for cls in range(1, 21):
+            n = int(dv[i, cls - 1].sum())
+            ref = host.get(cls, np.zeros((0, 5), np.float32))
+            if n != len(ref) or not dv[i, cls - 1, :n].all() or not np.array_equal(
+                    ds[i, cls - 1, :n], ref[:, 4]) or not np.allclose(
+                    db[i, cls - 1, :n], ref[:, :4], rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"device NMS image {i} class {cls}: {n} kept vs the "
+                                     f"host's {len(ref)}")
+            n_kept += n
+    print(f"SSD-Lite b{BATCH}: outputs equal to the plain-kernel net's, launches {launches}, "
+          f"variants {variants}; baseline card vs CPU {card_cpu}; fused vs baseline conf mean "
+          f"{conf_mean}, loc mean {loc_mean}; device NMS keeps the host's {n_kept} boxes",
+          flush=True)
+
+    # the entry point
+    art = out_dir / "ssd_art"
+    cli = {}
+    try:
+        out = run_ssd.main(["--quantize", "--relu", "--equalize", "--engine", "fused",
+                            "--device-nms"])
+        cli["fused_device_nms_detections"] = len(out["detections"][1])
+        out = run_ssd.main(["--quantize", "--relu", "--equalize", "--engine", "int8",
+                            "--save-artifact", str(art)])
+        m2, r2 = load_artifact(str(art))
+        xs = np.concatenate([out["predictor"].preprocess(im) for im in run_ssd.smoke_images()])
+        with torch.no_grad():
+            again = Int8Net(m2, r2, device=DEVICE)(torch.from_numpy(xs).to(DEVICE))
+        if not (np.array_equal(again[0].cpu().numpy(), out["conf"])
+                and np.array_equal(again[1].cpu().numpy(), out["loc"])):
+            raise AssertionError("run_ssd --engine int8: the reloaded artifact's outputs differ")
+        cli["int8_host_nms_detections"] = len(out["detections"][1])
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    print(f"run_ssd: fused with device NMS and int8 with its artifact reloaded bit-equal {cli}",
+          flush=True)
+    return {"prep": prep, "model": model, "net": net, "base": base, "launches": launches,
+            "inputs": inputs, "priors": priors,
+            "detail": {"launches": launches, "variants": variants, "card_vs_cpu": card_cpu,
+                       "fused_vs_baseline": {"conf_mean": conf_mean, "loc_mean": loc_mean},
+                       "device_nms_kept": n_kept, "cli": cli}}
+
+
+def phase_deeplab(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
+    """13. DeepLab-v3+ MobileNetV2 513x513 through the fused engine, the
+    baseline engine and its entry point."""
+    import shutil
+
+    import torch
+
+    from dfq_tpu_torch.cli import run_seg
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+    from dfq_tpu_torch.io import load_artifact
+    from dfq_tpu_torch.models import deeplab_mobilenet_v2
+
+    prep, model, residual = flagship(lambda: deeplab_mobilenet_v2(input_size=SEG_SIZE))
+    graph = model.graph
+    net = Int8FusedNet(model, device=DEVICE, params_f32=residual)
+    ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True, params_f32=residual)
+    base = Int8Net(model, residual, device=DEVICE)
+    kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
+    if kinds != {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
+        raise AssertionError(f"DeepLab kernel sites {kinds}")
+    checks = kernel_site_checks(net, graph, SEG_SIZE, (SEG_BATCH, ODD_BATCH), BIG_BATCH, ck)
+    checks += [(s, BATCH) for s, b in checks if b == BIG_BATCH and s[2].w.shape[0] % 8]
+    hold_sites(graph, SEG_SIZE, checks, wrappers, max_err, gen)
+    print(f"DeepLab: kernels == plain at all {len(net.kernel_sites)} sites at batch {SEG_BATCH} "
+          f"and {ODD_BATCH}, and at {sorted({(c[0][0], c[1]) for c in checks if c[1] > 4})}",
+          flush=True)
+
+    rng = np.random.default_rng(0)
+    images = np.clip(rng.normal(0, 1, (BATCH, SEG_SIZE, SEG_SIZE, 3)),
+                     -2.117, 2.64).astype(np.float32)
+    x4 = torch.from_numpy(images[:SEG_BATCH]).to(DEVICE)
+    out, launches, variants = launch_forward(ck, net, x4)
+    if launches != {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
+        raise AssertionError(f"DeepLab launches {launches}")
+    if variants["matmul_int8_requant"] != {"mma": 37, "dp4a": 1}:
+        raise AssertionError(f"DeepLab kernel variants {variants}")
+    if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
+        raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
+    with torch.no_grad():
+        equal_outputs("DeepLab vs plain versions", out, ref_net(x4))
+        classes = out.argmax(-1).to(torch.uint8).cpu().numpy()  # on the card
+        b_classes = base(x4).argmax(-1).cpu().numpy()
+    if out.shape != (SEG_BATCH, SEG_SIZE, SEG_SIZE, 21) or not torch.isfinite(out).all():
+        raise AssertionError(f"DeepLab output {tuple(out.shape)}")
+    card_cpu = hold_engines_card_vs_cpu("DeepLab", model, residual, x4[:2], ENGINE_RTOL)
+    # the JAX suite's agreement between the two engines (tests/test_int8_seg_det.py:95-98)
+    agree = float(np.mean(classes == b_classes))
+    if agree < 0.8:
+        raise AssertionError(f"DeepLab fused vs baseline argmax agreement {agree}")
+    print(f"DeepLab b{SEG_BATCH}: output equal to the plain-kernel net's, launches {launches}, "
+          f"K1 variants {variants['matmul_int8_requant']}; baseline card vs CPU {card_cpu}; "
+          f"fused vs baseline argmax agreement {agree}", flush=True)
+
+    art = out_dir / "seg_art"
+    cli = {}
+    try:
+        out = run_seg.main(["--quantize", "--relu", "--equalize", "--engine", "fused"])
+        cli["fused_classes"] = int(len(np.unique(out["classes"])))
+        out = run_seg.main(["--quantize", "--relu", "--equalize", "--engine", "int8",
+                            "--save-artifact", str(art)])
+        m2, r2 = load_artifact(str(art))
+        with torch.no_grad():
+            again = Int8Net(m2, r2, device=DEVICE)(
+                torch.from_numpy(run_seg.smoke_images()).to(DEVICE)).cpu().numpy()
+        if not np.array_equal(again, out["output"]):
+            raise AssertionError("run_seg --engine int8: the reloaded artifact's output differs")
+        cli["int8_classes"] = int(len(np.unique(out["classes"])))
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    print(f"run_seg: fused, and int8 with its artifact reloaded bit-equal {cli}", flush=True)
+    return {"prep": prep, "model": model, "net": net, "base": base, "launches": launches,
+            "images": images,
+            "detail": {"launches": launches, "variants": variants, "card_vs_cpu": card_cpu,
+                       "argmax_agree_baseline": agree, "cli": cli}}
 
 
 def phase_cli(out_dir: Path) -> dict:
@@ -565,24 +989,12 @@ def main() -> int:
     graph = model.graph
     net = Int8FusedNet(model, device=DEVICE)
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
-    wrappers = {
-        "matmul_int8_requant": (ck.matmul_int8_requant_packed, ck.matmul_int8_requant_plain),
-        "dw3x3_int8_requant": (ck.dw3x3_int8_requant_packed, ck.dw3x3_int8_requant_plain),
-        "fused_block_int8": (ck.fused_block_int8_packed, ck.fused_block_int8_plain),
-    }
+    wrappers = wrappers_of(ck)
     kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
     if kinds != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1, "fused_block_int8": 12}:
         raise AssertionError(f"main path kernel sites {kinds}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-
-    def site_input(kernel, name, batch):
-        node = graph[name]
-        shape = site_inputs(graph, batch, SIZE)[node.inputs[0]]
-        x = torch.randint(-128, 128, shape, generator=gen, device=DEVICE, dtype=torch.int8)
-        if kernel == "matmul_int8_requant":
-            x = x.reshape(-1, shape[-1])
-        return x
 
     # 3. every kernel against its plain version at every main-path site,
     # again at an odd batch, and at batch 128 where the inputs are largest
@@ -603,23 +1015,7 @@ def main() -> int:
         raise AssertionError(f"K3's first and last sites are {[s[0] for s in big[-2:]]}")
     checks = ([(s, BATCH) for s in net.kernel_sites] + [(s, ODD_BATCH) for s in net.kernel_sites]
               + [(s, BIG_BATCH) for s in big])
-    for (name, kernel, op), batch in checks:
-        wrap, plain = wrappers[kernel]
-        x = site_input(kernel, name, batch)
-        got = wrap(x, op)
-        torch.cuda.synchronize()
-        want = plain(x, op)
-        torch.cuda.synchronize()
-        if got.dtype != want.dtype or got.shape != want.shape:
-            raise AssertionError(f"{kernel} at {name}: {got.dtype}{tuple(got.shape)} "
-                                 f"vs plain {want.dtype}{tuple(want.shape)}")
-        err = float((got.double() - want.double()).abs().max())
-        max_err[kernel] = max(max_err[kernel], err)
-        if not torch.equal(got, want):
-            n_bad = int((got != want).sum())
-            raise AssertionError(f"{kernel} at {name} {tuple(x.shape)}: {n_bad} elements "
-                                 f"differ from the plain version (max abs {err})")
-        del got, want
+    hold_sites(graph, SIZE, checks, wrappers, max_err, gen)
     print(f"kernels == plain at all {len(net.kernel_sites)} sites at batch {BATCH} and at "
           f"batch {ODD_BATCH}, and at batch {BIG_BATCH} at {[s[0] for s in big]}: "
           f"max abs err {max_err}", flush=True)
@@ -682,60 +1078,32 @@ def main() -> int:
     detail["serving"] = {"dispatch_sizes": stats.dispatch_sizes}
 
     # 6. times
+    peaks = (mem_bw, int8_peak)
     rows = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                 "bytes_ms": 0.0, "ops_ms": 0.0, "has_library": True}
             for k in wrappers}
     sites = []
     for batch in (BATCH, BIG_BATCH):
         for name, kernel, op in net.kernel_sites:
-            wrap, plain = wrappers[kernel]
-            x = site_input(kernel, name, batch)
-            out = wrap(x, op)
-            nbytes, nops = work(kernel, op, tuple(x.shape), out.element_size())
-            t_k = time_ms(lambda: wrap(x, op))
-            t_d = graph_ms(lambda: wrap(x, op))
-            t_p = time_ms(lambda: plain(x, op), reps=3, rounds=3)
-            lib = library_call(kernel, op, x)
-            t_l = None if lib is None else time_ms(lib)
-            t_ld = None if lib is None else graph_ms(lib)
-            if lib is None and kernel == "matmul_int8_requant":
+            x = site_input(graph, SIZE, kernel, name, batch, gen)
+            t = time_site(kernel, op, x, wrappers, peaks)
+            if t["library_ms"] is None and kernel == "matmul_int8_requant":
                 print(f"no library yardstick at {name} b{batch} {tuple(x.shape)}: "
                       f"{INT_MM_RULE}", flush=True)
-            bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
-            split_ms = (max(bytes_ms, fused_block_split_bound_ms(op, tuple(x.shape), int8_peak))
-                        if kernel == "fused_block_int8" else None)
-            sites.append({"batch": batch, "node": name, "kernel": kernel,
-                          "shape": list(x.shape), "ms": t_k, "device_ms": t_d,
-                          "plain_ms": t_p, "library_ms": t_l, "library_device_ms": t_ld,
-                          "bytes": nbytes, "ops": nops,
-                          "bound_ms": max(bytes_ms, ops_ms),
-                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                          "split_bound_ms": split_ms})
+            t.update(batch=batch, node=name, split_bound_ms=(
+                max(t["bytes_ms"], fused_block_split_bound_ms(op, tuple(x.shape), int8_peak))
+                if kernel == "fused_block_int8" else None))
+            sites.append(t)
             if batch == BIG_BATCH:
                 r = rows[kernel]
-                r["ms"] += t_k
-                r["device_ms"] += t_d
-                r["plain_ms"] += t_p
-                r["bytes_ms"] += bytes_ms
-                r["ops_ms"] += ops_ms
-                r["bound_ms"] += max(bytes_ms, ops_ms)
-                if t_l is None:
+                for key in ("ms", "device_ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"):
+                    r[key] += t[key]
+                if t["library_ms"] is None:
                     r["has_library"] = False
                 else:
-                    r["library_ms"] += t_l
+                    r["library_ms"] += t["library_ms"]
     detail["sites"] = sites
-    print("per site: batch node shape | ms (host calls) | ms (device, graph replay) "
-          "| bound ms (by) | library ms (host calls / device) | device ms / bound "
-          "[| K3: split model ms (this design's units at their rates), device ms / it]")
-    for s in sites:
-        lib = ("none" if s["library_ms"] is None
-               else f"{s['library_ms']:.4f} / {s['library_device_ms']:.4f}")
-        print(f"  b{s['batch']} {s['node']} {tuple(s['shape'])} | {s['ms']:.4f} | "
-              f"{s['device_ms']:.4f} | {s['bound_ms']:.4f} ({s['bound_by']}) | {lib} | "
-              f"{s['device_ms'] / s['bound_ms']:.1f}x"
-              + ("" if s["split_bound_ms"] is None else
-                 f" | {s['split_bound_ms']:.4f}, {s['device_ms'] / s['split_bound_ms']:.1f}x"),
-              flush=True)
+    print_sites(sites)
     for batch in (BATCH, BIG_BATCH):
         k3_sites = [s for s in sites if s["kernel"] == "fused_block_int8" and s["batch"] == batch]
         print(f"K3 sum b{batch}: device ms {sum(s['device_ms'] for s in k3_sites):.4f}, bound "
@@ -760,11 +1128,24 @@ def main() -> int:
     r18 = phase_resnet(ck, images)
     detail["resnet18"] = r18["detail"]
 
-    # 9. every exact int8 product that is not a kernel, on both paths
+    # 12. SSD-Lite, 13. DeepLab (their launch counts are read around their
+    # forwards; phases 9 and 11 use their networks)
+    ssd = phase_ssd(ck, wrappers, max_err, gen, out_dir)
+    detail["ssd_lite"] = ssd["detail"]
+    seg = phase_deeplab(ck, wrappers, max_err, gen, out_dir)
+    detail["deeplab_mnv2"] = seg["detail"]
+
+    # 9. every exact int8 product that is not a kernel, on the four paths
     base = Int8Net(model, residual, device=DEVICE)
+    sizes = (BATCH, ODD_BATCH, BIG_BATCH)
     detail["exact_products"] = phase_exact_products(
-        [("mobilenet_v2", model.graph, [("baseline", base), ("fused", net)]),
-         ("resnet18", r18["model"].graph, [("baseline", r18["base"]), ("fused", r18["net"])])],
+        [("mobilenet_v2", model.graph, [("baseline", base), ("fused", net)], SIZE, sizes),
+         ("resnet18", r18["model"].graph, [("baseline", r18["base"]), ("fused", r18["net"])],
+          SIZE, sizes),
+         ("ssd_lite", ssd["model"].graph, [("baseline", ssd["base"]), ("fused", ssd["net"])],
+          SSD_SIZE, sizes),
+         ("deeplab_mnv2", seg["model"].graph, [("baseline", seg["base"]), ("fused", seg["net"])],
+          SEG_SIZE, (SEG_BATCH, ODD_BATCH, BATCH))],
         gen)
 
     # 10. the classification entry point
@@ -798,7 +1179,7 @@ def main() -> int:
         nbytes, nops = work("matmul_int8_requant", fc_op, tuple(x.shape),
                             wrap(x, fc_op).element_size())
         bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
-        lib = library_call("matmul_int8_requant", fc_op, x)
+        lib, _ = library_call("matmul_int8_requant", fc_op, x)
         k1_fc.append({"batch": batch, "shape": list(x.shape),
                       "ms": time_ms(lambda: wrap(x, fc_op)),
                       "device_ms": graph_ms(lambda: wrap(x, fc_op)),
@@ -810,6 +1191,68 @@ def main() -> int:
               f"{k1_fc[-1]}" + ("" if lib else f" (no library yardstick: {INT_MM_RULE})"),
               flush=True)
     detail["k1_resnet18_fc"] = k1_fc
+
+    # the detection and segmentation paths: forwards with their peak memory,
+    # device NMS, every kernel site
+    seg_forward = {"fused": seg["net"], "baseline": seg["base"],
+                   "simulator": simulator(seg["prep"])}
+    ssd_forward = {"fused": ssd["net"], "baseline": ssd["base"],
+                   "simulator": simulator(ssd["prep"])}
+    memory = {}
+    for path, fns, runs, inputs in (
+            ("ssd_lite", ssd_forward, (("fused", 1), ("fused", BATCH), ("fused", BIG_BATCH),
+                                       ("baseline", BATCH), ("simulator", BATCH)),
+             ssd["inputs"]),
+            ("deeplab_mnv2", seg_forward, (("fused", SEG_BATCH), ("fused", BATCH),
+                                           ("baseline", SEG_BATCH), ("simulator", SEG_BATCH)),
+             seg["images"])):
+        for eng, batch in runs:
+            xb = torch.from_numpy(inputs[:batch]).to(DEVICE)
+            key = f"{path}/{eng}/b{batch}"
+            times[key], memory[key] = forward_peak(fns[eng], xb)
+            print(f"forward {key}: median {times[key]:.3f} ms ({batch / times[key] * 1e3:.1f} "
+                  f"img/s), peak device memory {memory[key] / 2**30:.3f} GiB", flush=True)
+            del xb
+    detail["engine_forward_ms"] = times
+    detail["peak_memory_bytes"] = memory
+    from dfq_tpu_torch.detection.device_nms import decode_nms_batch
+
+    priors = torch.from_numpy(ssd["priors"]).to(DEVICE)
+    nms_ms = {}
+    for batch in (1, BIG_BATCH):
+        with torch.no_grad():
+            conf, loc = ssd["net"](torch.from_numpy(ssd["inputs"][:batch]).to(DEVICE))
+        nms_ms[batch] = time_ms(lambda: decode_nms_batch(conf, loc, priors), reps=5, rounds=5)
+        print(f"decode_nms_batch b{batch} (prob 0.01, IoU 0.45, 200 candidates, top 10): "
+              f"{nms_ms[batch]:.3f} ms", flush=True)
+    detail["decode_nms_batch_ms"] = nms_ms
+    new_sites = []
+    seg_dp4a = [s for s in seg["net"].kernel_sites if s[2].w.shape[0] % 8]
+    for path, sites_, pgraph, size, batches in (
+            ("ssd_lite", ssd["net"].kernel_sites, ssd["model"].graph, SSD_SIZE,
+             (BATCH, BIG_BATCH)),
+            ("deeplab_mnv2", seg["net"].kernel_sites, seg["model"].graph, SEG_SIZE,
+             (SEG_BATCH,)),
+            ("deeplab_mnv2", seg_dp4a, seg["model"].graph, SEG_SIZE, (BATCH, BIG_BATCH))):
+        for batch in batches:
+            for name, kernel, op in sites_:
+                x = site_input(pgraph, size, kernel, name, batch, gen)
+                t = time_site(kernel, op, x, wrappers, peaks, reps=10, rounds=3)
+                t.update(path=path, batch=batch, node=name)
+                new_sites.append(t)
+                del x
+    print_sites(new_sites)
+    for path, batch in (("ssd_lite", BATCH), ("ssd_lite", BIG_BATCH),
+                        ("deeplab_mnv2", SEG_BATCH)):
+        for k in wrappers:
+            ks = [t for t in new_sites if t["path"] == path and t["batch"] == batch
+                  and t["kernel"] == k]
+            if ks:
+                print(f"{path} b{batch} {k}: {len(ks)} sites, device ms "
+                      f"{sum(t['device_ms'] for t in ks):.4f}, ms {sum(t['ms'] for t in ks):.4f}, "
+                      f"bound {sum(t['bound_ms'] for t in ks):.4f}, plain "
+                      f"{sum(t['plain_ms'] for t in ks):.3f}", flush=True)
+    detail["sites_seg_det"] = new_sites
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -831,7 +1274,9 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"] if r["has_library"] else None,
             "launches_by_path": {"mobilenet_v2": launches[k],
-                                 "resnet18": r18["launches"][k]},
+                                 "resnet18": r18["launches"][k],
+                                 "ssd_lite": ssd["launches"][k],
+                                 "deeplab_mnv2": seg["launches"][k]},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

@@ -25,49 +25,23 @@ import time
 
 import numpy as np
 
-# flags of the JAX entry point that this one does not run yet, and the
-# ROADMAP.md item (section 1) that ports what they need
-UNPORTED = {
-    "--distill_range": "calibration (ZeroQ distillation): ROADMAP.md section 1, 'Calibration'",
-    "--true_data": "calibration from real images: ROADMAP.md section 1, 'Calibration'",
-    "--stream": "streaming eval (parallel/stream): ROADMAP.md section 1, 'Parallel'",
-    "--aot-batch": "a serialized cold start (io/aot): ROADMAP.md section 1, 'io'",
-}
+from dfq_tpu_torch.cli.common import add_dfq_flags, engine_forward, load_checkpoint, refuse_unported
 
 
 def get_argument(argv=None):
     p = argparse.ArgumentParser(description="DFQ classification on the PyTorch port")
-    # reference flags (main_cls.py:23-41)
-    p.add_argument("--quantize", action="store_true")
-    p.add_argument("--equalize", action="store_true")
-    p.add_argument("--distill_range", action="store_true")
-    p.add_argument("--correction", action="store_true")
-    p.add_argument("--absorption", action="store_true")
-    p.add_argument("--relu", action="store_true")
-    p.add_argument("--clip_weight", action="store_true")
+    add_dfq_flags(p)
     p.add_argument("--trainable", action="store_true",
                    help="per-forward weight fake-quant regime (reference QuantConv2d)")
     p.add_argument("--resnet", action="store_true")
-    p.add_argument("--log", action="store_true")
-    p.add_argument("--bits_weight", type=int, default=8)
-    p.add_argument("--bits_activation", type=int, default=8)
-    p.add_argument("--bits_bias", type=int, default=8)
     p.add_argument("--dis_batch_size", type=int, default=64)
     p.add_argument("--dis_num_batch", type=int, default=8)
     p.add_argument("--true_data", action="store_true",
                    help="calibrate ranges from real images in --data-dir")
-    # framework extensions
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (cuda, or cpu for the kernels' plain versions)")
-    p.add_argument("--engine", choices=["sim", "int8", "fused"], default="sim",
-                   help="fake-quant simulation or true-int8 execution")
-    p.add_argument("--checkpoint", type=str, default=None,
-                   help="torch state_dict (.pth) to load")
     p.add_argument("--data-dir", type=str, default=None,
                    help="ImageNet val directory (folder-per-class)")
     p.add_argument("--limit", type=int, default=None, help="max val images")
     p.add_argument("--batch-size", type=int, default=256)
-    p.add_argument("--save-artifact", type=str, default=None)
     p.add_argument("--aot-batch", type=int, default=0)
     p.add_argument("--stream", action="store_true")
     p.add_argument("--signed", action="store_true",
@@ -76,16 +50,11 @@ def get_argument(argv=None):
 
 
 def build_model(args):
-    import torch
-
-    from dfq_tpu_torch.models import init_params, load_torch_state_dict, mobilenet_v2, resnet18
+    from dfq_tpu_torch.models import init_params, mobilenet_v2, resnet18
 
     graph = resnet18() if args.resnet else mobilenet_v2()
     if args.checkpoint:
-        sd = torch.load(args.checkpoint, map_location="cpu", weights_only=False)
-        if hasattr(sd, "state_dict"):
-            sd = sd.state_dict()
-        params = load_torch_state_dict(graph, sd)
+        params = load_checkpoint(graph, args.checkpoint)
     else:
         print("WARNING: no --checkpoint given; using random weights")
         params = init_params(graph, seed=0, bn_stats="random")
@@ -97,16 +66,11 @@ def main(argv=None) -> dict:
     smoke images or ``acc``, the ``forward`` module, and for the int8
     engines the lowered ``model`` and its residual f32 ``params``)."""
     args = get_argument(argv)
-    for flag, what in UNPORTED.items():
-        if getattr(args, flag.lstrip("-").replace("-", "_")):
-            raise SystemExit(f"{flag}: {what} is not ported yet")
+    refuse_unported(args, ("--distill_range", "--true_data", "--stream", "--aot-batch"))
 
     import torch
 
     from dfq_tpu_torch.device import resolve_device
-    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net, lower_int8
-    from dfq_tpu_torch.graph import execute
-    from dfq_tpu_torch.graph.executor import params_to
     from dfq_tpu_torch.pipeline import QuantConfig, prepare
 
     device = resolve_device(args.device)
@@ -122,30 +86,7 @@ def main(argv=None) -> dict:
     prep = prepare(graph, params, cfg)
     print(f"pipeline: {time.time() - t0:.1f}s")
 
-    out: dict = {}
-    if args.engine in ("int8", "fused") and args.quantize:
-        if args.trainable:
-            raise SystemExit("--trainable is a fake-quant regime; use --engine sim")
-        model = lower_int8(prep)
-        residual = {k: v for k, v in prep.params.items() if k not in model.layers}
-        if args.engine == "fused":
-            fwd = Int8FusedNet(model, device=device, params_f32=residual)
-        else:
-            fwd = Int8Net(model, residual, device=device)
-        out.update(model=model, params=residual)
-        if args.save_artifact:
-            from dfq_tpu_torch.io import save_artifact
-
-            save_artifact(args.save_artifact, model, residual)
-            print(f"artifact saved to {args.save_artifact}")
-    else:
-        wb = cfg.bits_weight if (cfg.trainable and cfg.quantize) else None
-        sim_params = params_to(prep.params, device)
-
-        def fwd(x):
-            return execute(prep.graph, sim_params, x, act_ranges=prep.act_ranges,
-                           bits_act=cfg.bits_activation, weight_bits=wb,
-                           bias_bits=cfg.bits_bias, device=device)
+    fwd, out = engine_forward(prep, cfg, args.engine, device, args.save_artifact)
     out["forward"] = fwd
 
     acc = None

@@ -2,9 +2,10 @@
 
     python -m dfq_tpu_torch.tools.profile_forward [--model resnet18] [--batch 8 128]
 
-Builds the main path (full-width MobileNetV2, or ResNet-18 with
-``--model resnet18``; random weights from seed 0, the flagship DFQ config,
-``Int8FusedNet`` on CUDA), warms it up, then
+Builds a path at full width (MobileNetV2 224x224 by default; ResNet-18
+224x224, SSD-Lite 300x300 or DeepLab-v3+ MobileNetV2 513x513 with
+``--model resnet18|ssd_lite|deeplab``; random weights from seed 0, the
+flagship DFQ config, ``Int8FusedNet`` on CUDA), warms it up, then
 traces 5 forwards per batch size with ``torch.profiler``. Prints
 one JSON line per batch: wall time per forward (host clock, synchronised),
 device busy time per forward (the sum of the traced kernels' durations),
@@ -25,22 +26,38 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
-from dfq_tpu_torch.models import init_params, mobilenet_v2, resnet18
+from dfq_tpu_torch.models import (
+    deeplab_mobilenet_v2,
+    init_params,
+    mobilenet_v2,
+    mobilenet_v2_ssd_lite,
+    resnet18,
+)
 from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+
+# --model: (builder, input size, extra QuantConfig flags)
+MODELS = {
+    "mobilenet_v2": (mobilenet_v2, 224, {}),
+    "resnet18": (resnet18, 224, {}),
+    "ssd_lite": (mobilenet_v2_ssd_lite, 300, {"delete_single": True, "is_detection": True}),
+    "deeplab": (deeplab_mobilenet_v2, 513, {}),
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 128])
-    ap.add_argument("--model", choices=["mobilenet_v2", "resnet18"], default="mobilenet_v2")
+    ap.add_argument("--model", choices=sorted(MODELS), default="mobilenet_v2")
     args = ap.parse_args(argv)
-    steps, size = 5, 224
+    steps = 5
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: CUDA is not available")
 
-    graph = mobilenet_v2() if args.model == "mobilenet_v2" else resnet18()
+    build, size, extra = MODELS[args.model]
+    graph = build()
     cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
-                      correction=True, bits_bias=16)
+                      correction=True, bits_bias=16, **extra)
     model = lower_int8(prepare(graph, init_params(graph, seed=0, bn_stats="random"), cfg))
     net = Int8FusedNet(model, device="cuda")
     rng = np.random.default_rng(0)

@@ -182,6 +182,10 @@ def test_import_isolation():
         "import dfq_tpu_torch.serve, dfq_tpu_torch.interop, dfq_tpu_torch.quant\n"
         "import dfq_tpu_torch.graph.executor, dfq_tpu_torch.io, dfq_tpu_torch.cli.run_cls\n"
         "import dfq_tpu_torch.data, dfq_tpu_torch.models.resnet\n"
+        "import dfq_tpu_torch.detection, dfq_tpu_torch.detection.device_nms\n"
+        "import dfq_tpu_torch.metrics, dfq_tpu_torch.data.voc, dfq_tpu_torch.models.ssd\n"
+        "import dfq_tpu_torch.models.deeplab, dfq_tpu_torch.cli.run_ssd\n"
+        "import dfq_tpu_torch.cli.run_seg, dfq_tpu_torch.tools.profile_forward\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

@@ -10,7 +10,10 @@ counts that are not a multiple of 4 on K2 (its general variant), its
 strip variant with ragged strips and slabs and extreme zero points, f32
 output and both residual requants on K3, both K3 variants at the real
 channel counts of its 7 main-path shape classes on small and ragged
-images, and the wrappers' argument checks.
+images, the wrappers' argument checks, and the SSD-Lite and DeepLab
+shapes (K1's ``dp4a`` variant at the class heads and the segmentation
+classifier, K2 and K3 at the detection sites, the dilated ASPP, decoder
+and unpadded depthwise convs).
 """
 
 import numpy as np
@@ -364,3 +367,80 @@ def test_int8_maxpool_pad_on_cuda_equal_cpu(dev):
         got = net(xs.to(dev))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# -- the detection and segmentation paths' shapes (SSD-Lite 300x300,
+# DeepLab-v3+ MobileNetV2 513x513) --
+
+@pytest.mark.parametrize("M,K,N", [
+    (8 * 361, 576, 126), (8 * 100, 1280, 126), (8 * 25, 512, 126), (3 * 9, 256, 126),
+    (3 * 4, 256, 126), (3, 64, 126),  # SSD-Lite's class heads, N = 6 * 21
+    (4 * 16641, 256, 21), (3 * 16641, 256, 21),  # DeepLab's classifier
+])
+def test_matmul_dp4a_variant_at_the_head_sites(dev, M, K, N):
+    _mm_case(dev, M, K, N, "none", N == 126, "dp4a")
+
+
+@pytest.mark.parametrize("shape", [(3, 150, 150, 32), (3, 19, 19, 576), (3, 10, 10, 1280),
+                                   (8, 5, 5, 512), (8, 3, 3, 256), (8, 2, 2, 256)])
+def test_dw3x3_strip_variant_at_ssd_sites(dev, shape):
+    test_dw3x3_strip_variant_equals_plain(dev, shape, -128, False)
+
+
+# SSD-Lite's K3 shape classes (H = W, C, E, C2): slabs that do not divide
+# the map, rows padded from 75/38/19/10 to a multiple of 8
+_SSD_K3 = [(75, 24, 144, 24), (38, 32, 192, 32), (19, 64, 384, 96), (10, 160, 960, 320)]
+
+
+@pytest.mark.parametrize("N", [3, 8])
+@pytest.mark.parametrize("site", _SSD_K3, ids=lambda s: "x".join(map(str, s)))
+def test_fused_block_mma_variant_at_ssd_sites(dev, site, N):
+    H, C, E, C2 = site
+    rng = np.random.default_rng(H + N)
+    w1 = rng.integers(-128, 128, (C, E)).astype(np.int8)
+    w2 = rng.integers(-128, 128, (E, C2)).astype(np.int8)
+    res = C == C2
+    op = ck.pack_fused_block(
+        w1, rng.uniform(1e-4, 5e-4, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32), w1.astype(np.int32).sum(0),
+        rng.integers(-128, 128, (9, E)).astype(np.int8),
+        rng.uniform(1e-3, 4e-3, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32),
+        w2, rng.uniform(1e-5, 1e-4, C2).astype(np.float32),
+        rng.normal(0, 0.5, C2).astype(np.float32), w2.astype(np.int32).sum(0),
+        x_grid=(0.0412, -9), c1_grid=(0.0412, -9), e_grid=(0.0213, -128),
+        d_grid=(0.0531, -128), act1_hi=3.4e38, act2_hi=3.4e38,
+        res_grid=(0.0450, -2) if res else None, p_grid=(0.0301, 5) if res else None,
+        out_grid=(0.0622, -1), device=dev)
+    xd = _t(rng.integers(-128, 128, (N, H, H, C)).astype(np.int8), dev)
+    ck.reset_counts()
+    got = ck.fused_block_int8_packed(xd, op)
+    assert ck.VARIANTS["fused_block_int8"] == {"mma": 1, "general": 0}
+    _equal(got, ck.fused_block_int8_plain(xd, op))
+
+
+@pytest.mark.parametrize("cin,cout,dilation,n,hw", [
+    (320, 256, 6, 2, 33), (320, 256, 12, 1, 33), (320, 256, 18, 1, 33),  # ASPP, K = 2880
+    (304, 256, 1, 1, 65), (256, 256, 1, 1, 65),  # the decoder's 3x3 convs
+])
+def test_int8_conv_dilated_and_decoder_convs_exact_on_cuda(dev, cin, cout, dilation, n, hw):
+    test_int8_conv_routes_exact_on_cuda(dev, cin, cout, 3, 1, dilation, 1, n, hw, "int_mm")
+
+
+@pytest.mark.parametrize("c,dilation,stride", [(96, 1, 2), (384, 2, 1), (960, 4, 1)])
+def test_int8_conv_unpadded_depthwise_exact_on_cuda(dev, c, dilation, stride):
+    """DeepLab's depthwise convs: the block's input padded explicitly, the
+    conv unpadded, dilated in the later stages."""
+    import torch.nn.functional as F
+
+    from dfq_tpu_torch.engine.int8 import int8_conv, pack_int8_product
+
+    rng = np.random.default_rng(c + dilation)
+    node = _node(c, c, 3, stride, dilation, c)
+    node.attrs["padding"] = (0, 0)
+    qw = rng.integers(-128, 128, (c, 1, 3, 3)).astype(np.int8)
+    prod = pack_int8_product(qw, node, dev)
+    x = _t(rng.integers(-128, 128, (2, 21, 21, c)).astype(np.int8), dev)
+    want = F.conv2d(x.permute(0, 3, 1, 2).double(), torch.from_numpy(qw).to(dev).double(),
+                    stride=stride, dilation=dilation, groups=c).permute(0, 2, 3, 1)
+    _equal(int8_conv(x, node, prod, -7), want.to(torch.int32))

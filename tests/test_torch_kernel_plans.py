@@ -19,7 +19,10 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
   them, its launch-argument struct against the source, its packed chunk
   images, its tensor-core variant's algebra emulated block by block in
   numpy against ``fused_block_int8_plain``, and the epilogue helpers it
-  adds to ``csrc/int8_epilogue.cuh`` over every rounding tie.
+  adds to ``csrc/int8_epilogue.cuh`` over every rounding tie;
+- the plans at the SSD-Lite (300x300) and DeepLab (513x513) sites: K1's
+  ``dp4a`` variant where N is not a multiple of 8 (the class heads, the
+  segmentation classifier), K2's partial strips, K3's slabs.
 """
 
 import ctypes
@@ -855,3 +858,89 @@ def test_fused_block_tile_layouts_equal_the_plain_product(W):
                 np.testing.assert_array_equal(got, padded[:, 4 * s + j:4 * s + j + 3])
     # 32 lanes = 32 consecutive channels of one strip: 32 different banks
     assert len({(c * wp // 4) % 32 for c in range(32)}) == 32
+
+
+# ---------------------------------------------------------------------------
+# the detection and segmentation paths: SSD-Lite 300x300, DeepLab-v3+
+# MobileNetV2 513x513
+
+# SSD-Lite's K1 sites as (rows per image, K, N, f32 out), in network order
+SSD_K1_SITES = [
+    (150 * 150, 32, 16, False), (150 * 150, 16, 96, False), (75 * 75, 96, 24, False),
+    (75 * 75, 24, 144, False), (38 * 38, 144, 32, False), (38 * 38, 32, 192, False),
+    (19 * 19, 192, 64, False), (19 * 19, 96, 576, False), (10 * 10, 576, 160, False),
+    (10 * 10, 320, 1280, False), (10 * 10, 1280, 256, False), (5 * 5, 256, 512, False),
+    (5 * 5, 512, 128, False), (3 * 3, 128, 256, False), (3 * 3, 256, 128, False),
+    (2 * 2, 128, 256, False), (2 * 2, 256, 64, False), (1, 64, 64, False),
+] + [(hw * hw, k, n, True) for hw, k in ((19, 576), (10, 1280), (5, 512), (3, 256), (2, 256),
+                                         (1, 64)) for n in (126, 24)]
+# its K2 sites (H = W, C) and K3 shape classes (H = W, C, E, C2)
+SSD_K2_SITES = [(150, 32), (19, 576), (10, 1280), (5, 512), (3, 256), (2, 256)]
+SSD_K3_SITES = [(75, 24, 144, 24), (38, 32, 192, 32), (19, 64, 384, 64), (19, 64, 384, 96),
+                (19, 96, 576, 96), (10, 160, 960, 160), (10, 160, 960, 320)]
+# DeepLab's K1 shape classes (rows per image, K, N): the pointwise convs
+# after an explicit pad take the padded map; the last is the classifier
+DEEPLAB_K1_SITES = [
+    (257 * 257, 32, 16), (259 * 259, 16, 96), (129 * 129, 96, 24), (131 * 131, 24, 144),
+    (129 * 129, 144, 24), (65 * 65, 144, 32), (67 * 67, 32, 192), (65 * 65, 192, 32),
+    (33 * 33, 192, 64), (35 * 35, 64, 384), (33 * 33, 384, 64), (33 * 33, 384, 96),
+    (35 * 35, 96, 576), (33 * 33, 576, 96), (33 * 33, 576, 160), (35 * 35, 160, 960),
+    (33 * 33, 960, 160), (37 * 37, 160, 960), (33 * 33, 960, 320), (33 * 33, 320, 256),
+    (1, 320, 256), (33 * 33, 1280, 256), (129 * 129, 24, 48), (129 * 129, 256, 21),
+]
+
+
+@pytest.mark.parametrize("batch", [3, 8, 128])
+@pytest.mark.parametrize("site", SSD_K1_SITES, ids=lambda s: "x".join(map(str, s[:3])))
+def test_matmul_plan_ssd_sites(site, batch):
+    """Every SSD-Lite K1 site takes the tensor-core variant but the six
+    class heads, whose N = 6 * 21 = 126 is not a multiple of 8 (the mma
+    variant's column tiles are 8 wide): they take the dp4a variant."""
+    rows, K, N, out_f32 = site
+    plan = ck.matmul_plan(rows * batch, K, N, out_f32)
+    if N % 8:
+        assert plan == ck.MatmulPlan("dp4a")
+    else:
+        _check_mma_plan(plan, rows * batch, K, N, out_f32)
+
+
+@pytest.mark.parametrize("batch", [3, 4, 8])
+@pytest.mark.parametrize("site", DEEPLAB_K1_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_matmul_plan_deeplab_sites(site, batch):
+    """DeepLab's 38 K1 launches: all tensor-core but the classifier (N = 21)."""
+    rows, K, N = site
+    plan = ck.matmul_plan(rows * batch, K, N)
+    if N == 21:
+        assert plan == ck.MatmulPlan("dp4a")
+    else:
+        _check_mma_plan(plan, rows * batch, K, N, False)
+
+
+@pytest.mark.parametrize("batch", [3, 8, 128])
+@pytest.mark.parametrize("site", SSD_K2_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_dw3x3_plan_ssd_sites(site, batch):
+    """K2's strip variant at every SSD-Lite site, its 4-pixel strips
+    partial at W = 150, 19, 10, 5, 3 and 2 (the last strip of a row)."""
+    H, C = site
+    plan = ck.dw3x3_plan(batch, H, H, C)
+    assert plan.variant == "strip" and plan.rows in ck.DW_ROWS and plan.grid[1] == batch
+    items = -(-H // plan.rows) * -(-H // ck.DW_STRIP) * (C // 4)
+    assert (plan.grid[0] - 1) * ck.DW_THREADS < items <= plan.grid[0] * ck.DW_THREADS
+    if H > 2:
+        assert H % ck.DW_STRIP  # a partial strip at the row's end
+
+
+@pytest.mark.parametrize("N", [1, 3, 8, 128])
+@pytest.mark.parametrize("site", SSD_K3_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_block_plan_ssd_sites(site, N):
+    """K3 takes the tensor-core variant at every SSD-Lite block; its row
+    pitch rounds 75/38/19/10 up to a multiple of 8. At batch 8 the slabs
+    are 6, 3, 2 and 2 rows high: the last slab of 75, 38 and 19 is short."""
+    H, C, E, C2 = site
+    plan = ck.fused_block_plan(N, H, H, C, E, C2)
+    _check_fused_plan(plan, N, H, H, C, E, C2)
+    assert ck.fused_block_fits(H, H, C, E, C2)
+    assert plan.wx == -(-H // 8) * 8
+    if N == 8:
+        assert plan.bh == {75: 6, 38: 3, 19: 2, 10: 2}[H]
+        assert (H % plan.bh != 0) == (H != 10)
