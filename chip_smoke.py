@@ -97,8 +97,26 @@ Phases, in order; any failure exits non-zero:
    --engine fused`` and ``--engine int8 --save-artifact`` in-process, the
    reloaded artifact bit-equal.
 
-Phases 12 and 13 run after 10 and before 11. It prints the ``kernels``
-JSON line (with each kernel's launches on each model's path), then the card line, then as the last line ``{"ok": true,
+14. calibration (``--distill_range``), MobileNetV2 224x224 with the
+   flagship config: ``distill_batch_fn`` at run_cls's batch (64) capped at
+   ``DIS_STEPS`` steps in f32 and in bf16 (ms per step between CUDA events,
+   peak device memory; bf16's last loss within 25% of f32's); the f32 loss
+   and gradient at the seed batch on the card equal to the CPU's within
+   ``DIS_LOSS_RTOL`` and ``DIS_GRAD_RTOL`` (and what TF32 in the backward
+   would give, printed beside them); ``calibrate_ranges`` on the
+   two distilled batches, on the card against the CPU: at least 90% of the
+   sites within one fake-quant step, every one within 2% of its span (the
+   self-quant forwards flip ties); ``lower_int8`` and ``Int8FusedNet`` under those
+   ranges: 11 / 1 / 12 launches, K1 and K3 ``mma``, K2 ``strip``, the
+   forward bit-equal to the plain-kernel net, every kernel bit-equal to its
+   plain version at every site at batch 8 and 3; ``run_cls --distill_range
+   --engine fused --dis_batch_size 16 --dis_num_batch 1`` in-process with
+   its own 1000-step budget (wall time); the distillation step at SSD-Lite
+   300x300 and DeepLab 513x513, batch 16, bf16 (ms per step, peak memory).
+
+Phases 12 and 13 run after 10 and before 11, and 14 after 11. It prints
+the ``kernels`` JSON line (with each kernel's launches on each model's
+path, the calibrated one included), then the card line, then as the last line ``{"ok": true,
 "device": {...}}``. Per-site details go to ``chiprun_out/chip_smoke.json``.
 Without CUDA it exits 2 and prints no result.
 """
@@ -134,6 +152,20 @@ SSD_SIZE = 300
 SEG_SIZE = 513
 SEG_BATCH = 4  # the segmentation path's batch (the CLI's --batch-size)
 DET = {"delete_single": True, "is_detection": True}  # run_ssd's QuantConfig flags
+# phase 14: run_cls's distillation batch, the capped step counts it is timed
+# over, the detection and segmentation CLIs' batch, and the limits between
+# the distillation loss and gradient on the card and on the CPU. The loss
+# takes the CPU test's (tests/test_torch_calib.py); the gradient, of its
+# largest magnitude, 1e-4: the CPU test's 1e-5 holds on its small CNN (on
+# the card too, tests/test_torch_cuda.py), but the backward through
+# MobileNetV2's 52 convs sums in two orders and parts by 2.3e-5 (NVIDIA
+# H100 80GB HBM3, two calls alike). The script prints what TF32 gives.
+DIS_BATCH = 64
+DIS_STEPS = 40
+DIS_BATCH_SEG_DET = 16
+DIS_STEPS_SEG_DET = 10
+DIS_LOSS_RTOL = 1e-6
+DIS_GRAD_RTOL = 1e-4
 
 # (memory bytes/s, dense int8 ops/s) by card; NVIDIA data sheets
 _PEAKS = {
@@ -941,6 +973,194 @@ def phase_cli(out_dir: Path) -> dict:
     return result
 
 
+def distill_timed(graph, params, cfg):
+    """One capped ``distill_batch_fn`` run on the card after a 2-step
+    warm-up: ``(images, steps, last loss, ms per step between CUDA events,
+    peak device bytes)``."""
+    import dataclasses
+
+    import torch
+
+    from dfq_tpu_torch.calib.distill import distill_batch_fn, init_random_batch
+
+    x0 = init_random_batch(np.random.default_rng(0), cfg)
+    distill_batch_fn(graph, params, dataclasses.replace(cfg, max_iters=2))(x0)
+    run = distill_batch_fn(graph, params, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    x, steps, last = run(x0)
+    end.record()
+    end.synchronize()
+    return x, steps, last, start.elapsed_time(end) / steps, int(torch.cuda.max_memory_allocated())
+
+
+def phase_calibration(ck, wrappers, max_err: dict, gen, images) -> dict:
+    """14. ZeroQ calibration (``--distill_range``) on MobileNetV2 224x224:
+    the distillation at run_cls's batch (timed, f32 and bf16; the f32 loss
+    and gradient at the seed batch equal to the CPU's), ``calibrate_ranges``
+    on the card against the CPU, the calibrated model through
+    ``lower_int8`` and ``Int8FusedNet`` (launches, variants, every kernel
+    bit-equal to its plain version at every site under the calibrated
+    constants, the forward bit-equal to the plain-kernel net), the entry
+    point in-process with its own step budget, and the distillation step
+    at SSD-Lite 300x300 and DeepLab 513x513."""
+    import dataclasses
+
+    import torch
+
+    from dfq_tpu_torch.calib import DistillConfig, calibrate_ranges
+    from dfq_tpu_torch.calib.distill import init_random_batch, loss_and_grad, make_loss_fn
+    from dfq_tpu_torch.cli import run_cls
+    from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
+    from dfq_tpu_torch.models import (
+        deeplab_mobilenet_v2,
+        init_params,
+        mobilenet_v2,
+        mobilenet_v2_ssd_lite,
+    )
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    def prepared(graph, **flags):
+        cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
+                          correction=True, bits_bias=16, distill_range=True, **flags)
+        return prepare(graph, init_params(graph, seed=0, bn_stats="random"), cfg)
+
+    detail = {}
+    prep = prepared(mobilenet_v2())
+    # the distillation at run_cls's batch, both compute types
+    runs = {}
+    for dtype in ("f32", "bf16"):
+        cfg = DistillConfig(batch_size=DIS_BATCH, num_batch=1, early_break_factor=0.5,
+                            max_iters=DIS_STEPS, compute_dtype=dtype, device=DEVICE)
+        x, steps, last, ms, peak = distill_timed(prep.graph, prep.params_fp, cfg)
+        runs[dtype] = x.cpu().numpy()
+        detail[f"distill_{dtype}"] = {"batch": DIS_BATCH, "steps": steps, "last_loss": last,
+                                      "ms_per_step": ms, "peak_bytes": peak}
+        print(f"distill MobileNetV2 224x224 b{DIS_BATCH} {dtype}: {steps} steps, last loss "
+              f"{last:.4f}, {ms:.3f} ms/step, peak device memory {peak / 2**30:.3f} GiB",
+              flush=True)
+    ratio = detail["distill_bf16"]["last_loss"] / detail["distill_f32"]["last_loss"]
+    if not np.isfinite(ratio) or ratio > 1.25:
+        raise AssertionError(f"bf16 distillation loss {ratio:.4f}x the f32 loss after "
+                             f"{DIS_STEPS} steps (limit 1.25)")
+    # the f32 loss and gradient at the seed batch: card vs CPU
+    cfg = DistillConfig(batch_size=DIS_BATCH, compute_dtype="f32")
+    x0 = init_random_batch(np.random.default_rng(0), cfg)
+    grads = {}
+    for dev in (DEVICE, "cpu"):
+        loss_fn, _ = make_loss_fn(prep.graph, prep.params_fp,
+                                  dataclasses.replace(cfg, device=dev))
+        loss, g = loss_and_grad(loss_fn, torch.from_numpy(x0).to(dev))
+        grads[dev] = (float(loss), g.cpu().numpy())
+    (l_card, g_card), (l_cpu, g_cpu) = grads[DEVICE], grads["cpu"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_rel = float(np.abs(g_card - g_cpu).max() / np.abs(g_cpu).max())
+    # what the same gradient parts by with TF32 allowed (not the path's)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        loss_fn, _ = make_loss_fn(prep.graph, prep.params_fp,
+                                  dataclasses.replace(cfg, device=DEVICE))
+        x = torch.from_numpy(x0).to(DEVICE).requires_grad_(True)
+        (g_tf32,) = torch.autograd.grad(loss_fn(x), x)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_rel = float(np.abs(g_tf32.cpu().numpy() - g_cpu).max() / np.abs(g_cpu).max())
+    detail["loss_grad_card_vs_cpu"] = {"loss_card": l_card, "loss_cpu": l_cpu,
+                                       "loss_rel": loss_rel, "grad_rel_of_max": grad_rel,
+                                       "grad_rel_of_max_tf32_backward": tf32_rel}
+    if loss_rel > DIS_LOSS_RTOL or grad_rel > DIS_GRAD_RTOL:
+        raise AssertionError(f"distillation loss card vs CPU rel {loss_rel} (limit "
+                             f"{DIS_LOSS_RTOL}), gradient {grad_rel} of its max (limit "
+                             f"{DIS_GRAD_RTOL})")
+    print(f"distillation f32 at the seed batch, card vs CPU: loss {l_card} vs {l_cpu} (rel "
+          f"{loss_rel:.2e}), gradient {grad_rel:.2e} of its max (limits {DIS_LOSS_RTOL}, "
+          f"{DIS_GRAD_RTOL}; with TF32 in the backward {tf32_rel:.2e})", flush=True)
+    # calibrate_ranges on the distilled batches: card vs CPU
+    batches = [runs["f32"], runs["bf16"]]
+    ranges = calibrate_ranges(prep.graph, prep.params, batches, device=DEVICE)
+    ranges_cpu = calibrate_ranges(prep.graph, prep.params, batches, device="cpu")
+    # the self-quant forwards flip fake-quant ties where the two backends'
+    # f32 sums part in the last bit, and later sites carry a flip on (the
+    # simulator's divergence, ROADMAP.md section 3): most sites within one
+    # fake-quant step, every one within 2% of its span, as the CPU test
+    # holds the port against JAX (tests/test_torch_zeroq_cli.py)
+    steps_off = {s: max(abs(a - b) for a, b in zip(ranges[s], ranges_cpu[s]))
+                 / ((ranges_cpu[s][1] - ranges_cpu[s][0]) / 255.0) for s in ranges_cpu}
+    worst = max(steps_off, key=steps_off.get)
+    within = sum(v <= 1.0 for v in steps_off.values())
+    detail["ranges_card_vs_cpu"] = {"max_steps": steps_off[worst], "worst_site": worst,
+                                    "sites_within_one_step": within, "sites": len(steps_off)}
+    if (ranges.keys() != ranges_cpu.keys() or within < 0.9 * len(steps_off)
+            or steps_off[worst] > 0.02 * 255):
+        raise AssertionError(f"calibrate_ranges card vs CPU: {within} of {len(steps_off)} "
+                             f"sites within a fake-quant step; {worst} {steps_off[worst]} "
+                             f"steps apart")
+    print(f"calibrate_ranges: {len(ranges)} sites, card vs CPU: {within} within one "
+          f"fake-quant step, at most {steps_off[worst]:.3f} steps ({worst})", flush=True)
+    # the kernels under the calibrated constants
+    prep.act_ranges = ranges
+    model = lower_int8(prep)
+    net = Int8FusedNet(model, device=DEVICE)
+    ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
+    x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
+    logits, launches, variants = launch_forward(ck, net, x8)
+    if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
+                    "fused_block_int8": 12}:
+        raise AssertionError(f"calibrated path launches {launches}")
+    if variants != {"matmul_int8_requant": {"mma": 11, "dp4a": 0},
+                    "dw3x3_int8_requant": {"strip": 1, "general": 0},
+                    "fused_block_int8": {"mma": 12, "general": 0}}:
+        raise AssertionError(f"calibrated path kernel variants {variants}")
+    if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
+        raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
+    with torch.no_grad():
+        ref = ref_net(x8)
+    equal_outputs("calibrated MobileNetV2 forward vs its plain-kernel net", logits, ref)
+    lg = logits.cpu().numpy()
+    if lg.shape != (BATCH, 1000) or not np.isfinite(lg).all():
+        raise AssertionError(f"calibrated logits {lg.shape}, finite={np.isfinite(lg).all()}")
+    checks = ([(s, BATCH) for s in net.kernel_sites] + [(s, ODD_BATCH) for s in net.kernel_sites])
+    hold_sites(model.graph, SIZE, checks, wrappers, max_err, gen)
+    # the constants the BN-derived ranges never gave: zero points and ratios
+    zps = sorted({op.zp_in for _, _, op in net.kernel_sites if hasattr(op, "zp_in")})
+    print(f"calibrated path: launches {launches}, variants {variants}, forward bit-equal to "
+          f"the plain-kernel net, every kernel == plain at all {len(net.kernel_sites)} sites "
+          f"at batch {BATCH} and {ODD_BATCH}; input zero points {zps}", flush=True)
+    detail.update(launches=launches, variants=variants, argmax=lg.argmax(-1).tolist())
+    # the entry point in-process, with its own step budget
+    t0 = time.perf_counter()
+    out = run_cls.main(["--quantize", "--relu", "--equalize", "--distill_range", "--engine",
+                        "fused", "--dis_batch_size", str(DIS_BATCH_SEG_DET),
+                        "--dis_num_batch", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    if not np.isfinite(out["logits"]).all():
+        raise AssertionError("run_cls --distill_range: logits not finite")
+    detail["cli_wall_s"] = cli_s
+    print(f"run_cls --quantize --relu --equalize --distill_range --engine fused "
+          f"--dis_batch_size {DIS_BATCH_SEG_DET} --dis_num_batch 1: {cli_s:.1f} s wall",
+          flush=True)
+    # the distillation step of the detection and segmentation CLIs
+    for name, graph, flags, dcfg in (
+            ("ssd_lite", mobilenet_v2_ssd_lite(num_classes=21), DET,
+             dict(image_size=(SSD_SIZE, SSD_SIZE), value_range=(-1.0, 1.0), max_value=1.0,
+                  early_break_factor=0.04)),
+            ("deeplab_mnv2", deeplab_mobilenet_v2(input_size=SEG_SIZE), {},
+             dict(image_size=(SEG_SIZE, SEG_SIZE), early_break_factor=0.2))):
+        p = prepared(graph, **flags)
+        cfg = DistillConfig(batch_size=DIS_BATCH_SEG_DET, num_batch=1,
+                            max_iters=DIS_STEPS_SEG_DET, device=DEVICE, **dcfg)
+        _, steps, last, ms, peak = distill_timed(p.graph, p.params_fp, cfg)
+        detail[f"distill_{name}"] = {"batch": DIS_BATCH_SEG_DET, "steps": steps,
+                                     "last_loss": last, "ms_per_step": ms, "peak_bytes": peak}
+        print(f"distill {name} b{DIS_BATCH_SEG_DET} bf16: {steps} steps, {ms:.3f} ms/step, "
+              f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+        del p
+    torch.cuda.empty_cache()
+    return {"launches": launches, "detail": detail}
+
+
 def main() -> int:
     import torch
 
@@ -1253,6 +1473,10 @@ def main() -> int:
                       f"bound {sum(t['bound_ms'] for t in ks):.4f}, plain "
                       f"{sum(t['plain_ms'] for t in ks):.3f}", flush=True)
     detail["sites_seg_det"] = new_sites
+
+    # 14. calibration (its launch counts are read around its forward)
+    calib = phase_calibration(ck, wrappers, max_err, gen, images)
+    detail["calibration"] = calib["detail"]
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -1276,7 +1500,8 @@ def main() -> int:
             "launches_by_path": {"mobilenet_v2": launches[k],
                                  "resnet18": r18["launches"][k],
                                  "ssd_lite": ssd["launches"][k],
-                                 "deeplab_mnv2": seg["launches"][k]},
+                                 "deeplab_mnv2": seg["launches"][k],
+                                 "mobilenet_v2_calibrated": calib["launches"][k]},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

@@ -11,8 +11,6 @@ import argparse
 # flags of the JAX entry points that the port does not run yet, and the
 # ROADMAP.md item (section 1) that ports what they need
 UNPORTED = {
-    "--distill_range": "calibration (ZeroQ distillation): ROADMAP.md section 1, 'Calibration'",
-    "--true_data": "calibration from real images: ROADMAP.md section 1, 'Calibration'",
     "--stream": "streaming eval (parallel/stream): ROADMAP.md section 1, 'Parallel'",
     "--aot-batch": "a serialized cold start (io/aot): ROADMAP.md section 1, 'io'",
 }
@@ -44,6 +42,16 @@ def refuse_unported(args, flags) -> None:
     for flag in flags:
         if getattr(args, flag.lstrip("-").replace("-", "_")):
             raise SystemExit(f"{flag}: {UNPORTED[flag]} is not ported yet")
+
+
+def distill_config(args, device, **overrides):
+    """The entry point's ``DistillConfig``: ``--dis_batch_size`` batches of
+    ``--dis_num_batch`` on ``device``, with the workload's ``overrides``
+    (image size, value range, early-break factor)."""
+    from dfq_tpu_torch.calib import DistillConfig
+
+    return DistillConfig(batch_size=args.dis_batch_size, num_batch=args.dis_num_batch,
+                         device=str(device), **overrides)
 
 
 def engine_forward(prep, cfg, engine: str, device, save_artifact=None):

@@ -10,6 +10,11 @@ Examples::
     python -m dfq_tpu_torch.cli.run_cls --quantize --relu --equalize \\
         --engine int8 --checkpoint mobilenetv2.pth --data-dir /data/imagenet/val
 
+With ``--quantize --distill_range`` the activation ranges come from
+ZeroQ calibration (``dfq_tpu_torch.calib``): batches distilled from the
+model's BN statistics, or with ``--true_data`` the first
+``--dis_batch_size * --dis_num_batch`` images of ``--data-dir``.
+
 It runs on CUDA unless ``--device cpu`` is given. ``--engine sim`` is the
 f32 fake-quant simulator (``dfq_tpu_torch.graph.execute``), ``int8`` the
 baseline int8 engine (``Int8Net``), ``fused`` the fused engine on the
@@ -25,7 +30,14 @@ import time
 
 import numpy as np
 
-from dfq_tpu_torch.cli.common import add_dfq_flags, engine_forward, load_checkpoint, refuse_unported
+from dfq_tpu_torch.calib import calibrate_ranges, distill_data
+from dfq_tpu_torch.cli.common import (
+    add_dfq_flags,
+    distill_config,
+    engine_forward,
+    load_checkpoint,
+    refuse_unported,
+)
 
 
 def get_argument(argv=None):
@@ -66,7 +78,9 @@ def main(argv=None) -> dict:
     smoke images or ``acc``, the ``forward`` module, and for the int8
     engines the lowered ``model`` and its residual f32 ``params``)."""
     args = get_argument(argv)
-    refuse_unported(args, ("--distill_range", "--true_data", "--stream", "--aot-batch"))
+    # streaming changes only how --data-dir's batches are fed (JAX ignores
+    # the flag without it)
+    refuse_unported(args, ("--aot-batch",) + (("--stream",) if args.data_dir else ()))
 
     import torch
 
@@ -84,6 +98,20 @@ def main(argv=None) -> dict:
     )
     t0 = time.time()
     prep = prepare(graph, params, cfg)
+
+    if args.distill_range and args.quantize:
+        if args.true_data:
+            if not args.data_dir:
+                raise SystemExit("--true_data requires --data-dir")
+            from dfq_tpu_torch.data import imagenet_batches
+
+            batches = [imgs for imgs, _ in imagenet_batches(
+                args.data_dir, args.dis_batch_size,
+                limit=args.dis_batch_size * args.dis_num_batch)]
+        else:
+            dcfg = distill_config(args, device, early_break_factor=1.2 if args.resnet else 0.5)
+            batches = distill_data(prep.graph, prep.params_fp, dcfg, verbose=True)
+        prep.act_ranges = calibrate_ranges(prep.graph, prep.params, batches, device=device)
     print(f"pipeline: {time.time() - t0:.1f}s")
 
     fwd, out = engine_forward(prep, cfg, args.engine, device, args.save_artifact)

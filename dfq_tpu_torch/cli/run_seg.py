@@ -23,7 +23,8 @@ import time
 
 import numpy as np
 
-from dfq_tpu_torch.cli.common import add_dfq_flags, engine_forward, load_checkpoint, refuse_unported
+from dfq_tpu_torch.calib import calibrate_ranges, distill_data
+from dfq_tpu_torch.cli.common import add_dfq_flags, distill_config, engine_forward, load_checkpoint
 
 
 def get_argument(argv=None):
@@ -50,7 +51,6 @@ def main(argv=None) -> dict:
     logits of the smoke image, or ``mIOU``; the ``forward``; for the int8
     engines the lowered ``model`` and its residual f32 ``params``)."""
     args = get_argument(argv)
-    refuse_unported(args, ("--distill_range",))
 
     import torch
 
@@ -75,6 +75,12 @@ def main(argv=None) -> dict:
     )
     t0 = time.time()
     prep = prepare(graph, params, cfg)
+
+    if args.distill_range and args.quantize:
+        dcfg = distill_config(args, device, image_size=(args.crop_size, args.crop_size),
+                              early_break_factor=0.2)
+        batches = distill_data(prep.graph, prep.params_fp, dcfg, verbose=True)
+        prep.act_ranges = calibrate_ranges(prep.graph, prep.params, batches, device=device)
     print(f"pipeline: {time.time() - t0:.1f}s")
 
     fwd, out = engine_forward(prep, cfg, args.engine, device, args.save_artifact)

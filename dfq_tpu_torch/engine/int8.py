@@ -413,8 +413,21 @@ def _spatial_sum(x: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor
     and each term is ``fma(q, scale, acc)``. There, at heights 2, 4 and 8
     LLVM unrolls the loop over rows: each row is its own sequential chain
     and the rows are added as a halving tree (row ``i`` with row
-    ``i + H/2``, and so on; measured on XLA:CPU at widths 2-8)."""
+    ``i + H/2``, and so on; measured on XLA:CPU at widths 2-8). At height
+    16 (read from its LLVM IR) it vectorizes the rows in two blocks of 8
+    lanes: lane ``i`` sums the rounded products ``q * scale`` of row ``i``
+    in order, then of row ``i + 8``, and the 8 lanes are added as a halving
+    tree."""
     _, H, W, _ = x.shape
+    if scale is not None and H == 16:
+        terms = x * scale
+        lanes = terms[:, :8, 0]
+        for i in range(1, 2 * W):
+            lanes = lanes + terms[:, 8 * (i // W):8 * (i // W) + 8, i % W]
+        while lanes.shape[1] > 1:
+            half = lanes.shape[1] // 2
+            lanes = lanes[:, :half] + lanes[:, half:]
+        return lanes[:, 0]
     if scale is not None and H in (2, 4, 8):
         rows = [_spatial_sum(x[:, h:h + 1], scale) for h in range(H)]
         while len(rows) > 1:

@@ -222,6 +222,51 @@ def _find_fusable_blocks(graph: Graph, model: Int8Model, plan):
     return blocks
 
 
+def _lane_tree(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 (the vector lanes) as LLVM reduces a ``reassoc``
+    vector: lane ``i`` with lane ``i + L/2``, halving."""
+    while t.shape[1] > 1:
+        half = t.shape[1] // 2
+        t = t[:, :half] + t[:, half:]
+    return t[:, 0]
+
+
+def xla_cpu_mean_sum(x: torch.Tensor, fused_producer: bool) -> torch.Tensor:
+    """Sum over (h, w) of NHWC f32 in XLA:CPU's order for the JAX fused
+    engine's spatial mean (read from its LLVM IR, jax 0.9; the reduction's
+    add is ``reassoc``, so LLVM vectorizes it):
+
+    - at map width 4, 8 or 16 where the mean's loop also computes a fused
+      producer (the residual add: ResNet-18), or at 16 after a kernel
+      (MobileNetV2): a loop over rows carries one sum; each row is a
+      vector of 8 lanes (4 at width 4), lane 0 starting from the carried
+      sum, the second half of a 16-wide row added lane by lane onto the
+      first, and the lanes reduced as a halving tree;
+    - at height 4 or 8 after a kernel: each row is a lane summed in order
+      over the width, the rows reduced as a halving tree;
+    - otherwise in order over (h, w)."""
+    _, H, W, _ = x.shape
+    if W in (4, 8, 16) and (fused_producer or W == 16):
+        vf = min(W, 8)
+        acc = torch.zeros_like(x[:, 0, 0])
+        for h in range(H):
+            lanes = x[:, h, W - vf:].clone()
+            lanes[:, 0] = acc + lanes[:, 0]
+            if W > vf:
+                lanes = x[:, h, :vf] + lanes
+            acc = _lane_tree(lanes)
+        return acc
+    if H in (4, 8) and not fused_producer:
+        lanes = x[:, :, 0]
+        for w in range(1, W):
+            lanes = lanes + x[:, :, w]
+        return _lane_tree(lanes)
+    acc = x[:, 0, 0]
+    for i in range(1, H * W):
+        acc = acc + x[:, i // W, i % W]
+    return acc
+
+
 def _is_pw(node) -> bool:
     a = node.attrs
     return (node.op == "conv" and a["kernel"] == (1, 1) and a["groups"] == 1
@@ -475,13 +520,19 @@ class Int8FusedNet(nn.Module):
     def _build_mean(self, node) -> Step:
         """Spatial mean in f32 (the JAX engine's fallback), in the order
         and with the constant folding XLA:CPU gives it: the site
-        quantize's multiply folds into the dequant's, the sum runs
-        sequentially over (h, w), and ``/ n`` folds into the output
-        quantize's reciprocal."""
+        quantize's multiply folds into the dequant's, the sum runs in the
+        order :func:`xla_cpu_mean_sum` mirrors, and ``/ n`` folds into the
+        output quantize's reciprocal."""
         name, src = node.name, node.inputs[0]
         site = _site_params(self.model, f"{name}:in0")
         sp = self.plan.get(name)
         self._grids[name] = sp
+        # the residual add (through its activation) fuses into the mean's
+        # loop; a kernel's output does not
+        prod = self.model.graph[src]
+        while prod.op in ("relu", "relu6"):
+            prod = self.model.graph[prod.inputs[0]]
+        fused_producer = prod.op == "add"
 
         def mean(env, done):
             v = env[src]
@@ -498,9 +549,7 @@ class Int8FusedNet(nn.Module):
                 x = v if site is None else (
                     _quantize_f32(v, *site).to(torch.float32) - site[1]) * f32(site[0])
             _, H, W, _ = x.shape
-            acc = x[:, 0, 0]
-            for i in range(1, H * W):
-                acc = acc + x[:, i // W, i % W]
+            acc = xla_cpu_mean_sum(x, fused_producer)
             if sp is None:
                 env[name] = acc * f32(np.float32(1) / np.float32(H * W))
             else:

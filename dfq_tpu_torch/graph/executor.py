@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from dfq_tpu_torch.device import resolve_device
 from dfq_tpu_torch.graph.ir import Graph, node_sites
-from dfq_tpu_torch.ops.rounding import f32, recip_xla
+from dfq_tpu_torch.ops.rounding import f32, fma_f32, recip_xla
 from dfq_tpu_torch.quant.core import fake_quant
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -52,14 +52,19 @@ def highest_precision():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def params_to(params: Dict[str, Dict[str, Any]], device) -> Params:
-    """Every leaf of a params dict as an f32 tensor on ``device`` (a leaf
-    already there is not copied)."""
+def params_to(params: Dict[str, Dict[str, Any]], device, dtype=None) -> Params:
+    """Every leaf of a params dict as a tensor on ``device`` (a leaf already
+    there is not copied): of ``dtype`` if given, else f32 for host arrays
+    while a tensor keeps its floating dtype (distillation's bf16 params)."""
     dev = resolve_device(device)
-    return {k: {n: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-                                   dtype=torch.float32, device=dev)
-                for n, v in p.items()}
-            for k, p in params.items()}
+
+    def leaf(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=dtype or (v.dtype if v.is_floating_point()
+                                                    else torch.float32))
+        return torch.as_tensor(np.asarray(v), dtype=dtype or torch.float32, device=dev)
+
+    return {k: {n: leaf(v) for n, v in p.items()} for k, p in params.items()}
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -72,16 +77,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _conv(x: torch.Tensor, node, p) -> torch.Tensor:
     a = node.attrs
-    out = _nhwc(F.conv2d(_nchw(x), p["weight"], stride=a["stride"], padding=a["padding"],
-                         dilation=a["dilation"], groups=a["groups"]))
+    out = _nhwc(F.conv2d(_nchw(x), p["weight"].to(x.dtype), stride=a["stride"],
+                         padding=a["padding"], dilation=a["dilation"], groups=a["groups"]))
     b = p.get("bias")
-    return out if b is None else out + b
+    return out if b is None else out + b.to(out.dtype)
 
 
 def _linear(x: torch.Tensor, node, p) -> torch.Tensor:
-    out = torch.matmul(x, p["weight"].t())
+    out = torch.matmul(x, p["weight"].t().to(x.dtype))
     b = p.get("bias")
-    return out if b is None else out + b
+    return out if b is None else out + b.to(out.dtype)
 
 
 def _bn(x: torch.Tensor, node, p) -> torch.Tensor:
@@ -100,9 +105,16 @@ def _pool(x: torch.Tensor, node, kind: str) -> torch.Tensor:
     return _nhwc(out)
 
 
-def _interp_matrix(in_len: int, out_len: int, align_corners: bool, device) -> torch.Tensor:
-    """Dense (out_len, in_len) bilinear interpolation matrix: each row
-    holds the two taps ``(1-w, w)`` of one output coordinate."""
+# input lengths at which XLA:CPU sums a bilinear resize's two taps as
+# ``fma(w1, x1, f32(w0 * x0))``; at the others (4-8, 10-12, 17-19, 33, 65,
+# 129, measured) as ``f32(w0 * x0) + f32(w1 * x1)`` (jax 0.9, the JAX
+# package's matmul form; tests/test_torch_deeplab.py)
+RESIZE_FMA_LENGTHS = frozenset({2, 3, 9, 13, 14, 15, 16, 31, 32, 64})
+
+
+def _resize_taps(in_len: int, out_len: int, align_corners: bool, device):
+    """Each output coordinate's two input indices and weights ``(i0, i1,
+    w0, w1)``: the taps of the JAX package's interpolation matrix."""
     if align_corners and out_len > 1:
         cs = torch.linspace(0.0, in_len - 1.0, out_len, device=device)
     else:
@@ -112,22 +124,31 @@ def _interp_matrix(in_len: int, out_len: int, align_corners: bool, device) -> to
     i0 = torch.floor(cs).long()
     i1 = torch.clamp(i0 + 1, max=in_len - 1)
     w1 = cs - i0
-    rows = torch.arange(out_len, device=device)
-    a = torch.zeros((out_len, in_len), dtype=torch.float32, device=device)
-    a.index_put_((rows, i0), 1.0 - w1, accumulate=True)
-    a.index_put_((rows, i1), w1, accumulate=True)
-    return a
+    return i0, i1, 1.0 - w1, w1
+
+
+def _resize_axis(x: torch.Tensor, axis: int, out_len: int, align_corners: bool):
+    """Bilinear resize of NHWC ``x`` along ``axis`` (1 or 2) by gathering
+    the two taps and summing them in XLA:CPU's form for this length."""
+    in_len = x.shape[axis]
+    i0, i1, w0, w1 = _resize_taps(in_len, out_len, align_corners, x.device)
+    shape = [1, 1, 1, 1]
+    shape[axis] = out_len
+    w0, w1 = w0.reshape(shape), w1.reshape(shape)
+    p0 = x.index_select(axis, i0) * w0
+    x1 = x.index_select(axis, i1)
+    if in_len in RESIZE_FMA_LENGTHS:
+        return fma_f32(x1, w1, p0)
+    return p0 + x1 * w1
 
 
 def _resize_bilinear(x: torch.Tensor, out_size, align_corners: bool) -> torch.Tensor:
-    """Separable bilinear resize as two matrix products (the same taps as a
-    gather)."""
-    _, h, w, _ = x.shape
+    """Separable bilinear resize, rows then columns, as the JAX package's
+    two interpolation-matrix products compute it, in f32 (a bf16 map is
+    promoted, as JAX promotes it)."""
     oh, ow = out_size
-    a_h = _interp_matrix(h, oh, align_corners, x.device)
-    a_w = _interp_matrix(w, ow, align_corners, x.device)
-    rows = torch.einsum("Oh,bhwc->bOwc", a_h, x)
-    return torch.einsum("Ow,bhwc->bhOc", a_w, rows)
+    rows = _resize_axis(x.float(), 1, oh, align_corners)
+    return _resize_axis(rows, 2, ow, align_corners)
 
 
 def _interpolate(x: torch.Tensor, node) -> torch.Tensor:

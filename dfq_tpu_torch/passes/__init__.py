@@ -6,3 +6,4 @@ from dfq_tpu_torch.passes.correct import bias_correction  # noqa: F401
 from dfq_tpu_torch.passes.clip import clip_weights  # noqa: F401
 from dfq_tpu_torch.passes.weight_quant import quantize_layer_weights  # noqa: F401
 from dfq_tpu_torch.passes.range_setter import set_quant_ranges  # noqa: F401
+from dfq_tpu_torch.passes.learned_scale import learn_scales  # noqa: F401

@@ -123,7 +123,8 @@ def prepare(
             act_ranges = set_quant_ranges(
                 graph, params, is_detection=cfg.is_detection
             )
-        # distilled ranges: calibration is not ported yet (ROADMAP)
+        # distilled ranges: the entry points set them after prepare, with
+        # dfq_tpu_torch.calib.calibrate_ranges on distilled batches
 
     return PreparedModel(
         graph=graph,

@@ -1,7 +1,8 @@
 """The port's classification entry point (``dfq_tpu_torch.cli.run_cls``) on
 the CPU: each engine on the 8 seeded 224x224 smoke images, the artifact it
 saves reproducing its network bit for bit, and the flags whose modules
-are not ported yet refused with the ROADMAP item that ports them."""
+are not ported yet refused with the ROADMAP item that ports them
+(``--stream`` only where it would stream, with ``--data-dir``)."""
 
 import numpy as np
 import pytest
@@ -42,7 +43,7 @@ def test_int8_engines_and_artifact(engine, tmp_path, capsys):
     assert set(residual) == set(out["params"]) and model.layers.keys() == out["model"].layers.keys()
 
 
-@pytest.mark.parametrize("flag", [["--distill_range"], ["--true_data"], ["--stream"],
+@pytest.mark.parametrize("flag", [["--stream", "--data-dir", "imagenet/val"],
                                   ["--aot-batch", "8"]])
 def test_unported_flags_exit_nonzero(flag):
     with pytest.raises(SystemExit) as e:

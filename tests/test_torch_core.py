@@ -186,6 +186,9 @@ def test_import_isolation():
         "import dfq_tpu_torch.metrics, dfq_tpu_torch.data.voc, dfq_tpu_torch.models.ssd\n"
         "import dfq_tpu_torch.models.deeplab, dfq_tpu_torch.cli.run_ssd\n"
         "import dfq_tpu_torch.cli.run_seg, dfq_tpu_torch.tools.profile_forward\n"
+        "import dfq_tpu_torch.calib, dfq_tpu_torch.calib.distill, dfq_tpu_torch.calib.calibrate\n"
+        "import dfq_tpu_torch.calib.recon, dfq_tpu_torch.calib.distill_correct\n"
+        "import dfq_tpu_torch.passes.learned_scale, dfq_tpu_torch.cli.run_zeroq\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

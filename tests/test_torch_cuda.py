@@ -10,10 +10,11 @@ counts that are not a multiple of 4 on K2 (its general variant), its
 strip variant with ragged strips and slabs and extreme zero points, f32
 output and both residual requants on K3, both K3 variants at the real
 channel counts of its 7 main-path shape classes on small and ragged
-images, the wrappers' argument checks, and the SSD-Lite and DeepLab
-shapes (K1's ``dp4a`` variant at the class heads and the segmentation
+images, the wrappers' argument checks, the SSD-Lite and DeepLab shapes
+(K1's ``dp4a`` variant at the class heads and the segmentation
 classifier, K2 and K3 at the detection sites, the dilated ASPP, decoder
-and unpadded depthwise convs).
+and unpadded depthwise convs), and calibration's distillation loss and
+gradient and ``calibrate_ranges`` on the card against the CPU.
 """
 
 import numpy as np
@@ -444,3 +445,68 @@ def test_int8_conv_unpadded_depthwise_exact_on_cuda(dev, c, dilation, stride):
     want = F.conv2d(x.permute(0, 3, 1, 2).double(), torch.from_numpy(qw).to(dev).double(),
                     stride=stride, dilation=dilation, groups=c).permute(0, 2, 3, 1)
     _equal(int8_conv(x, node, prod, -7), want.to(torch.int32))
+
+
+# -- calibration (ZeroQ) on the card against the CPU --------------------------
+
+def _small_cnn():
+    """``tests/test_calibration.py``'s ``_small_cnn``, in the port's builder."""
+    from dfq_tpu_torch.graph import GraphBuilder
+
+    b = GraphBuilder()
+    x = b.input("data")
+    x = b.conv("c1", x, 3, 8, (3, 3), stride=(2, 2), padding=(1, 1))
+    x = b.bn("n1", x, 8)
+    x = b.relu("r1", x)
+    x = b.conv("c2", x, 8, 12, (3, 3), stride=(2, 2), padding=(1, 1))
+    x = b.bn("n2", x, 12)
+    x = b.relu("r2", x)
+    x = b.global_mean("gm", x)
+    x = b.linear("fc", x, 12, 4)
+    return b.build([x])
+
+
+def test_distill_loss_and_grad_card_vs_cpu(dev):
+    """The f32 distillation loss and its gradient on the card equal the
+    CPU's to the CPU test's limits (tests/test_torch_calib.py): TF32 or an
+    inexact conv algorithm would break them."""
+    import dataclasses
+
+    from dfq_tpu_torch.calib.distill import (
+        DistillConfig,
+        init_random_batch,
+        loss_and_grad,
+        make_loss_fn,
+    )
+    from dfq_tpu_torch.models import init_params
+
+    g = _small_cnn()
+    p = init_params(g, seed=0, bn_stats="random")
+    cfg = DistillConfig(batch_size=16, image_size=(16, 16), compute_dtype="f32")
+    x0 = init_random_batch(np.random.default_rng(0), cfg)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        loss_fn, _ = make_loss_fn(g, p, dataclasses.replace(cfg, device=str(d)))
+        loss, grad = loss_and_grad(loss_fn, torch.from_numpy(x0).to(d))
+        out[d.type] = (float(loss), grad.cpu().numpy())
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-6 * abs(lh), (lc, lh)
+    assert np.abs(gc - gh).max() <= 1e-5 * np.abs(gh).max(), np.abs(gc - gh).max() / np.abs(
+        gh).max()
+
+
+def test_calibrate_ranges_card_vs_cpu(dev):
+    from dfq_tpu_torch.calib import calibrate_ranges
+    from dfq_tpu_torch.models import init_params
+    from dfq_tpu_torch.passes import fold_batchnorm, quantize_layer_weights
+
+    gf, pf = fold_batchnorm(_small_cnn(), init_params(_small_cnn(), seed=0, bn_stats="random"))
+    pq = quantize_layer_weights(gf, pf, bits_weight=4, bits_bias=32)
+    rng = np.random.default_rng(3)
+    batches = [rng.normal(0, 1, (8, 16, 16, 3)).astype(np.float32) for _ in range(3)]
+    card = calibrate_ranges(gf, pq, batches, device=dev)
+    cpu = calibrate_ranges(gf, pq, batches, device="cpu")
+    assert card.keys() == cpu.keys()
+    for site, (lo, hi) in cpu.items():
+        step = (hi - lo) / 255.0
+        assert abs(card[site][0] - lo) <= step and abs(card[site][1] - hi) <= step, site

@@ -7,9 +7,10 @@ the JAX package's, with random BN statistics.
 - ``Int8FusedNet(device="cpu")`` matches ``jax.jit(execute_int8_fused(
   use_pallas=True, fuse_blocks=True))`` (Pallas in interpret mode) and
   ``Int8Net`` matches ``execute_int8`` at 129x129 batch 1, at the JAX
-  suite's engine tolerance (``rtol=0, atol=1e-4``; measured 1.5e-5 of
-  max|logit| ~74: the final bilinear resize sums in another order), with
-  the argmax equal on at least 99.9% of the pixels. K1 runs at all 38
+  suite's engine tolerance (``rtol=0, atol=1e-4``), with the argmax equal
+  on at least 99.9% of the pixels; and at 257x257, where the resizes run
+  17 -> 65 -> 257, with the argmax equal everywhere (both need the
+  bilinear resize's taps summed in XLA:CPU's form for each length). K1 runs at all 38
   pointwise convs; K2 and K3 never, in either package: the backbone pads
   each block's input explicitly and runs its depthwise convs unpadded
   (``dfq_tpu/models/deeplab.py:142-158``), which neither kernel takes.
@@ -128,3 +129,32 @@ def test_baseline_engine_matches_jax(engines):
     with torch.no_grad():
         got = Int8Net(model, residual, device="cpu")(torch.from_numpy(x))
     _close(got, want)
+
+
+@pytest.mark.parametrize("engine", ["fused", "baseline"])
+def test_engines_match_jax_at_257(engine):
+    """At 257x257 the decoder resizes 17 -> 65 and the output 65 -> 257,
+    lengths where XLA:CPU sums the two taps as two rounded products and an
+    add (``RESIZE_FMA_LENGTHS`` in the port's executor); the port mirrors
+    that form, so both engines agree with JAX to the JAX suite's limit."""
+    g = j_deeplab(input_size=257)
+    prep = j_prepare(g, j_init_params(g, seed=0, bn_stats="random"),
+                     JQuantConfig(**CONFIGS["flagship"]))
+    model = j_lower_int8(prep)
+    x = np.clip(np.random.default_rng(0).normal(0, 1, (1, 257, 257, 3)), -2.117,
+                2.64).astype(np.float32)
+    residual = params_from_jax({k: v for k, v in prep.params.items() if k not in model.layers})
+    tmodel = int8_model_from_jax(model)
+    if engine == "fused":
+        want = jax.jit(lambda v: execute_int8_fused(
+            model, prep.params, v, use_pallas=True, fuse_blocks=True))(jnp.asarray(x))
+        net = Int8FusedNet(tmodel, device="cpu", params_f32=residual)
+    else:
+        want = jax.jit(lambda v: j_execute_int8(model, prep.params, v))(jnp.asarray(x))
+        net = Int8Net(tmodel, residual, device="cpu")
+    with torch.no_grad():
+        got = net(torch.from_numpy(x)).numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape == (1, 257, 257, 21) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))

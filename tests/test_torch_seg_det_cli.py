@@ -3,8 +3,8 @@
 Pascal VOC tree, against the JAX package's CLIs on the same tree: the
 data loaders yield equal arrays, ``SegEvaluator`` counts equal matrices,
 the printed mIOU and mAP equal the JAX CLIs' within 1e-6, the artifacts
-round-trip and cross-load with ``dfq_tpu.io``, and the smoke runs and
-refused flags behave as in ``run_cls``."""
+round-trip and cross-load with ``dfq_tpu.io``, and the smoke runs behave as
+in ``run_cls``."""
 
 import json
 import sys
@@ -234,14 +234,6 @@ def test_carried_model_matches_entry_point():
         got = Int8Net(int8_model_from_jax(model), residual, device="cpu")(
             torch.from_numpy(run_seg.smoke_images(size=129)))
     assert np.array_equal(got.numpy(), out["output"])
-
-
-@pytest.mark.parametrize("module", [run_ssd, run_seg])
-def test_distill_range_exits_nonzero(module):
-    with pytest.raises(SystemExit) as e:
-        module.main(DFQ + ["--distill_range"])
-    assert e.value.code not in (0, None)
-    assert "--distill_range" in str(e.value.code) and "ROADMAP.md" in str(e.value.code)
 
 
 @pytest.mark.parametrize("module", [run_ssd, run_seg])
