@@ -114,16 +114,55 @@ Phases, in order; any failure exits non-zero:
    its own 1000-step budget (wall time); the distillation step at SSD-Lite
    300x300 and DeepLab 513x513, batch 16, bf16 (ms per step, peak memory).
 
-Phases 12 and 13 run after 10 and before 11, and 14 after 11. It prints
-the ``kernels`` JSON line (with each kernel's launches on each model's
-path, the calibrated one included), then the card line, then as the last line ``{"ok": true,
-"device": {...}}``. Per-site details go to ``chiprun_out/chip_smoke.json``.
-Without CUDA it exits 2 and prints no result.
+15. the native deployment path: ``libdfqrt`` (``native/src/dfqrt.cpp``, the
+   host runtime) built by the port with g++ (build seconds); ``python -m
+   dfq_tpu_torch.cli.convert --relu --equalize --validate`` in-process
+   (MobileNetV2 224x224, full width, the seed's weights, the ncnn regime);
+   the golden artifact's and convert's native files re-exported from their
+   artifact directories byte-identical to the files beside them; the
+   runtime on ``golden/input.npy`` within 1e-4 of ``golden/logits.npy``,
+   same argmax; the runtime on the host against ``Int8Net`` on the card at
+   2 images under ``tests/test_native_runtime.py:62-67``'s contract (mean
+   |diff| < 2e-3, max < 5e-2, > 90% within 5e-3, equal top-1); the
+   runtime's ms per image at batch 1 and 8 with its OpenMP threads and
+   the host CPU's model;
+16. the AOT cold start: ``run_cls --quantize --relu --equalize --engine
+   fused --save-artifact D --aot-batch 128`` in-process; a fresh Python
+   process whose ``nvcc`` is unreachable and whose build directory is
+   empty loads ``load_aot_forward(D)`` and runs batch 128: its logits
+   bit-equal to the exporting process's, 11 / 1 / 12 launches, nothing
+   built; the same from a fresh process that builds the kernels with
+   ``nvcc`` into an empty directory; both processes' seconds from start
+   to first logits and the payload's bytes; a ``meta.json`` with another
+   card's name refused with ``ValueError``;
+17. the rest of the model zoo, full width, random weights from the seed:
+   DeepLab-v3+ Xception, DRN-D-54 and ResNet-101 at 513x513 batch 4 (the
+   flagship config), the SSD variants MobileNetV1-SSD, -SSD-Lite,
+   SqueezeNet-SSD-Lite, FPN-MobileNetV1-SSD and VGG16-SSD at 300x300
+   batch 8, and AlexNet at 224x224 batch 8 (``--relu --equalize`` with
+   ranges calibrated on the card over two seeded batches: the data-free
+   range setter refuses BN-less graphs, as the reference does). For each:
+   the kernel sites and launches equal to the JAX fused engine's
+   ``pallas_call`` counts (``ZOO``), every site bit-equal to its plain
+   version at the model's batch and at batch 3, the forward bit-equal to
+   the plain-kernel net with outputs of the expected shapes, the baseline
+   engine on the card against the CPU within ``ENGINE_RTOL`` (DeepLab at
+   1 image, the others at 2), phase 9's float64 check of every other int8
+   product at batch 2, the fused forward's median ms and peak memory, and
+   every kernel site's time beside its bound, plain version and yardstick.
+
+Phases 12 and 13 run after 10 and before 11, and 14 to 17 after 11. It
+prints the ``kernels`` JSON line (with each kernel's launches on each
+model's path: the calibrated, the AOT and the zoo's included), then the
+card line, then as the last line ``{"ok": true, "device": {...}}``.
+Per-site details go to ``chiprun_out/chip_smoke.json``. Without CUDA it
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -230,6 +269,10 @@ def site_inputs(graph, batch: int, size: int):
             shapes[node.name] = (s[0], *a["size"], s[3])
         elif node.op == "concat" and a.get("axis", -1) in (-1, 3):
             shapes[node.name] = s[:-1] + (sum(shapes[i][-1] for i in node.inputs),)
+        elif node.op == "reshape":  # shape excludes the batch; one -1
+            rest = [d for d in a["shape"] if d != -1]
+            n = int(np.prod(s[1:])) // int(np.prod(rest))
+            shapes[node.name] = (s[0],) + tuple(n if d == -1 else d for d in a["shape"])
         else:
             shapes[node.name] = s
     return shapes
@@ -643,8 +686,8 @@ def phase_exact_products(paths, gen) -> dict:
         big = {max((n for n in convs if route[n] == r),
                    key=lambda n: conv_work(graph, n, 1, size))
                for r in set(route[n] for n in convs)}
-        checks = [(n, b) for b in (b_main, b_odd) for n in names] + [
-            (n, b_big) for n in sorted(big)]
+        checks = [(n, b) for b in (b_main, b_odd) if b for n in names] + [
+            (n, b_big) for n in sorted(big) if b_big]
         for name, batch in checks:
             node = graph[name]
             shape = site_inputs(graph, batch, size)[node.inputs[0]]
@@ -681,8 +724,9 @@ def phase_exact_products(paths, gen) -> dict:
             del x, want
         print(f"{model_name}: {len(names)} exact int8 products (routes "
               f"{ {r: sum(1 for n in names if route[n] == r) for r in set(route.values())} }) "
-              f"bit-equal to float64 at batch {b_main} and {b_odd}, and at batch "
-              f"{b_big} at {sorted(big)}", flush=True)
+              f"bit-equal to float64 at batch {b_main}"
+              + (f" and {b_odd}" if b_odd else "")
+              + (f", and at batch {b_big} at {sorted(big)}" if b_big else ""), flush=True)
     return {"checks": n_checked, "routes": routes}
 
 
@@ -1161,6 +1205,359 @@ def phase_calibration(ck, wrappers, max_err: dict, gen, images) -> dict:
     return {"launches": launches, "detail": detail}
 
 
+def cpu_model() -> str:
+    """The host CPU's model name as ``lscpu`` prints it, with the vendor,
+    family and model numbers of ``/proc/cpuinfo`` beside it (a virtual
+    machine's ``lscpu`` may say ``unknown``)."""
+    import shutil
+
+    name = "no lscpu"
+    if shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], check=True, capture_output=True, text=True,
+                             timeout=60).stdout
+        name = next((line.split(":", 1)[1].strip() for line in out.splitlines()
+                     if line.startswith("Model name:")), "no model name")
+    info = {}
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key = line.split(":", 1)[0].strip()
+        if key in ("vendor_id", "cpu family", "model", "model name") and key not in info:
+            info[key] = line.split(":", 1)[1].strip()
+    return (f"{name} (/proc/cpuinfo: {info.get('model name')}, {info.get('vendor_id')} "
+            f"family {info.get('cpu family')} model {info.get('model')}, "
+            f"{os.cpu_count()} CPUs)")
+
+
+def host_ms(fn, rounds: int = 5) -> float:
+    """Median wall ms of ``fn()`` on the host's clock, after one warm-up."""
+    fn()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        per.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(per))
+
+
+def phase_deployment(root: Path, out_dir: Path) -> dict:
+    """15. The native deployment path: ``libdfqrt`` built by the port with
+    g++, ``convert --relu --equalize --validate`` in-process (MobileNetV2
+    224x224, full width, the seed's random weights), the golden artifact's
+    native files re-exported byte for byte and run through the runtime,
+    the runtime on the host against ``Int8Net`` on the card."""
+    import filecmp
+    import shutil
+
+    from dfq_tpu_torch.cli import convert
+    from dfq_tpu_torch.engine import native
+    from dfq_tpu_torch.io import load_artifact
+    from dfq_tpu_torch.io.native_export import save_native_artifact
+
+    t0 = time.perf_counter()
+    lib = native.build_native()
+    build_s = time.perf_counter() - t0
+    work_dir = out_dir / "deployment"
+    shutil.rmtree(work_dir, ignore_errors=True)
+    try:
+        prefix = str(work_dir / "mnv2")
+        out = convert.main(["--relu", "--equalize", "--validate", "--out", prefix,
+                            "--device", DEVICE])
+        # the golden artifact reloaded and exported again, and convert's own
+        # artifact: the same bytes as the files they came with
+        model, residual = load_artifact(str(root / "golden" / "artifact"))
+        save_native_artifact(str(work_dir / "golden"), model, residual)
+        model, residual = load_artifact(prefix)
+        save_native_artifact(str(work_dir / "again"), model, residual)
+        for a, b in ((work_dir / "golden", root / "golden" / "model_native"),
+                     (work_dir / "again", Path(prefix + "_native"))):
+            for ext in (".dfqparam", ".dfqbin"):
+                if not filecmp.cmp(str(a) + ext, str(b) + ext, shallow=False):
+                    raise AssertionError(f"native export {a}{ext} differs from {b}{ext}")
+        # the golden model through the runtime
+        x = np.load(root / "golden" / "input.npy")
+        want = np.load(root / "golden" / "logits.npy")
+        got = native.NativeModel(str(root / "golden" / "model_native"), lib_path=lib).forward(x)[0]
+        golden_diff = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+        if golden_diff > 1e-4 or not (got.argmax(-1) == want.argmax(-1)).all():
+            raise AssertionError(f"native runtime on golden/: max abs {golden_diff}")
+        # the runtime on the host against Int8Net on the card, 2 images
+        # (tests/test_native_runtime.py:62-67's contract)
+        d = np.abs(out["native"] - out["engine"])
+        within = float(np.mean(d < 5e-3))
+        if not (d.mean() < 2e-3 and d.max() < 5e-2 and within > 0.9
+                and (out["native"].argmax(-1) == out["engine"].argmax(-1)).all()):
+            raise AssertionError(f"native vs card: mean {d.mean()}, max {d.max()}, within "
+                                 f"5e-3 {within}")
+        nm = native.NativeModel(prefix + "_native", lib_path=lib)
+        imgs = np.clip(np.random.default_rng(1).normal(0, 1, (8, SIZE, SIZE, 3)),
+                       -2.117, 2.64).astype(np.float32)
+        per_image = {b: host_ms(lambda b=b: nm.forward(imgs[:b])) / b for b in (1, 8)}
+        # without OpenMP (a compiler that has none) the runtime runs on one thread
+        threads = int(nm._lib.omp_get_max_threads()) if native.openmp() else 1
+        nm.close()
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    cpu = cpu_model()
+    cxx, flags = native.toolchain()
+    print(f"deployment: libdfqrt built in {build_s:.2f} s ({cxx} {' '.join(flags)}); "
+          f"convert --validate top-1 agreement {out['top1_agreement']}, max abs "
+          f"{out['max_abs']}; native vs card mean {d.mean():.3g} max {d.max():.3g} within "
+          f"5e-3 {within}; golden/ through the runtime max abs {golden_diff}; exports "
+          f"byte-identical; native ms/image b1 {per_image[1]:.3f}, b8 {per_image[8]:.3f} "
+          f"({threads} OpenMP threads, host CPU {cpu})", flush=True)
+    return {"build_s": build_s, "golden_max_abs": golden_diff,
+            "convert_max_abs": out["max_abs"], "native_vs_card": {
+                "mean": float(d.mean()), "max": float(d.max()), "within_5e-3": within},
+            "native_ms_per_image": per_image, "omp_threads": threads, "cpu": cpu,
+            "compiler": cxx, "flags": list(flags)}
+
+
+# the cold start of phase 16, run in a fresh interpreter: with AOT=1 the
+# artifact's shipped kernels (nvcc made unreachable), else an nvcc build
+# into an empty directory; prints one JSON line
+COLD_START = r"""
+import json, sys, tempfile, time
+t0 = float(sys.argv[1])
+from pathlib import Path
+import numpy as np, torch
+from dfq_tpu_torch.ops import _build
+from dfq_tpu_torch.ops import cuda_int8 as ck
+_build.BUILD_DIR = Path(tempfile.mkdtemp(dir=sys.argv[5]))
+if sys.argv[2] == "1":
+    def _no_nvcc():
+        raise RuntimeError("nvcc reached in an AOT cold start")
+    _build.nvcc_path = _no_nvcc
+    from dfq_tpu_torch.io.aot import load_aot_forward
+    net = load_aot_forward(sys.argv[3])
+else:
+    from dfq_tpu_torch.engine import Int8FusedNet
+    from dfq_tpu_torch.io import load_artifact
+    model, residual = load_artifact(sys.argv[3])
+    net = Int8FusedNet(model, params_f32=residual)
+x = torch.from_numpy(np.load(sys.argv[4])).cuda()
+ck.reset_counts()
+with torch.no_grad():
+    y = net(x).cpu().numpy()
+first = time.time() - t0
+np.save(sys.argv[4] + ".out.npy", y)
+print(json.dumps({"first_logits_s": first, "launches": dict(ck.LAUNCHES),
+                  "built": sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))}))
+"""
+
+
+def phase_aot(root: Path) -> dict:
+    """16. ``run_cls --aot-batch 128`` in-process, then a fresh process that
+    cannot reach ``nvcc`` loads the payload and runs batch 128: its logits
+    bit-equal to the exporting process's; the same from a process that
+    builds with ``nvcc`` into an empty directory; a changed meta field
+    refused."""
+    import shutil
+
+    import torch
+
+    from dfq_tpu_torch.cli import run_cls
+    from dfq_tpu_torch.io import aot
+
+    work = root / "build" / "aot_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    art = work / "art"
+    try:
+        out = run_cls.main(["--quantize", "--relu", "--equalize", "--engine", "fused",
+                            "--save-artifact", str(art), "--aot-batch", str(BIG_BATCH)])
+        x = np.clip(np.random.default_rng(2).normal(0, 1, (BIG_BATCH, SIZE, SIZE, 3)),
+                    -2.117, 2.64).astype(np.float32)
+        np.save(work / "x.npy", x)
+        with torch.no_grad():
+            want = out["forward"](torch.from_numpy(x).to(DEVICE)).cpu().numpy()
+        payload = sum(f.stat().st_size for f in (art / aot.AOT_DIR).iterdir())
+        runs = {}
+        for label, use_aot in (("aot", "1"), ("nvcc", "0")):
+            t0 = time.time()
+            proc = subprocess.run(
+                [sys.executable, "-c", COLD_START, repr(t0), use_aot, str(art),
+                 str(work / "x.npy"), str(work)],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"cold start ({label}) failed:\n{proc.stderr[-3000:]}")
+            runs[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[label]["wall_s"] = time.time() - t0
+            got = np.load(str(work / "x.npy") + ".out.npy")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"cold start ({label}): logits differ from the exporting "
+                                     f"process's (max abs {float(np.abs(got - want).max())})")
+        if runs["aot"]["built"]:
+            raise AssertionError(f"the AOT cold start built {runs['aot']['built']}")
+        if len(runs["nvcc"]["built"]) != 3:
+            raise AssertionError(f"the nvcc cold start built {runs['nvcc']['built']}")
+        if runs["aot"]["launches"] != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
+                                       "fused_block_int8": 12}:
+            raise AssertionError(f"AOT forward launches {runs['aot']['launches']}")
+        # a payload made for another card is refused
+        meta_file = art / aot.AOT_DIR / "meta.json"
+        meta = json.loads(meta_file.read_text())
+        meta_file.write_text(json.dumps(dict(meta, device_name=meta["device_name"] + " (other)")))
+        try:
+            aot.load_aot_forward(str(art))
+        except ValueError as e:
+            if "re-export on matching hardware" not in str(e):
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError("load_aot_forward took a payload of another card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"aot: run_cls --aot-batch {BIG_BATCH} payload {payload} bytes (nvcc {meta['nvcc_release']}"
+          f", torch {meta['torch_version']}, CUDA {meta['torch_cuda']}); fresh process to "
+          f"first b{BIG_BATCH} logits: {runs['aot']['first_logits_s']:.2f} s from the shipped "
+          f"kernels (nvcc unreachable), {runs['nvcc']['first_logits_s']:.2f} s building with "
+          f"nvcc into an empty directory; both bit-equal to the exporting process; launches "
+          f"{runs['aot']['launches']}; a changed device_name refused: {refused}", flush=True)
+    return {"payload_bytes": payload, "meta": meta, "runs": runs,
+            "launches": runs["aot"]["launches"], "refused": refused}
+
+
+# phase 17's models: builder, input size, batch, detection flags, data-free
+# ranges (else calibrated on two seeded batches), and the kernel sites of
+# the JAX fused engine's forward (its pallas_call counts: K1, K2, K3)
+ZOO = {
+    "deeplab_xception": ("deeplab_xception", SEG_SIZE, SEG_BATCH, False, True, (69, 0, 0)),
+    "deeplab_drn": ("deeplab_drn", SEG_SIZE, SEG_BATCH, False, True, (39, 0, 0)),
+    "deeplab_resnet101": ("deeplab_resnet101", SEG_SIZE, SEG_BATCH, False, True, (73, 0, 0)),
+    "mobilenet_v1_ssd": ("mobilenet_v1_ssd", SSD_SIZE, BATCH, True, False, (5, 3, 6)),
+    "mobilenet_v1_ssd_lite": ("mobilenet_v1_ssd_lite", SSD_SIZE, BATCH, True, False, (21, 13, 6)),
+    "squeezenet_ssd_lite": ("squeezenet_ssd_lite", SSD_SIZE, BATCH, True, False, (38, 10, 0)),
+    "fpn_mobilenet_v1_ssd": ("fpn_mobilenet_v1_ssd", SSD_SIZE, BATCH, True, False, (7, 3, 6)),
+    "vgg16_ssd": ("vgg16_ssd", SSD_SIZE, BATCH, True, False, (5, 0, 0)),
+    "alexnet": ("alexnet", SIZE, BATCH, False, False, (3, 0, 0)),
+}
+ZOO_PRIORS = {"mobilenet_v1_ssd": 3000, "mobilenet_v1_ssd_lite": 3000,
+              "squeezenet_ssd_lite": 2568, "fpn_mobilenet_v1_ssd": 3000, "vgg16_ssd": 8732}
+
+
+def zoo_model(name):
+    """``(prepared, lowered, residual f32 params, input images)`` of a zoo
+    model with random weights from the seed: the flagship config where the
+    data-free ranges take the graph, else ``--relu --equalize`` with
+    ranges from ``calibrate_ranges`` on the card over two seeded batches
+    of 4 (the BN-less SSD variants and AlexNet, which the data-free range
+    setter refuses as the reference does)."""
+    import dfq_tpu_torch.models as models
+    from dfq_tpu_torch.calib import calibrate_ranges
+    from dfq_tpu_torch.engine import lower_int8
+    from dfq_tpu_torch.models import init_params
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    fn, size, batch, det, data_free, _ = ZOO[name]
+    build = getattr(models, fn)
+    graph = build(input_size=size) if fn.startswith("deeplab") else build()
+    flags = DET if det else {}
+    rng = np.random.default_rng(0)
+    if det:
+        images = rng.uniform(-1, 1, (batch + 8, size, size, 3)).astype(np.float32)
+    else:
+        images = np.clip(rng.normal(0, 1, (batch + 8, size, size, 3)), -2.117,
+                         2.64).astype(np.float32)
+    params = init_params(graph, seed=0, bn_stats="random")
+    if data_free:
+        cfg = QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
+                          correction=True, bits_bias=16, **flags)
+        prep = prepare(graph, params, cfg)
+    else:
+        cfg = QuantConfig(quantize=True, relu=True, equalize=True, bits_bias=16,
+                          distill_range=True, **flags)
+        prep = prepare(graph, params, cfg)
+        prep.act_ranges = calibrate_ranges(
+            prep.graph, prep.params, [images[batch:batch + 4], images[batch + 4:]],
+            is_detection=det, device=DEVICE)
+    model = lower_int8(prep)
+    residual = {k: v for k, v in prep.params.items() if k not in model.layers}
+    return prep, model, residual, images[:batch]
+
+
+def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
+    """17. The rest of the model zoo at full width: each model's kernel
+    sites and launches equal to the JAX fused engine's routing, every site
+    bit-equal to its plain version at the model's batch and at batch 3, the
+    fused forward bit-equal to its plain-kernel net, the baseline engine on
+    the card against the CPU, every other int8 product against float64 at
+    batch 2, the forward's time and peak memory and every site's time."""
+    import torch
+
+    from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
+
+    result, sites = {}, []
+    for name, (_, size, batch, det, data_free, jax_sites) in ZOO.items():
+        t0 = time.perf_counter()
+        prep, model, residual, images = zoo_model(name)
+        prep_s = time.perf_counter() - t0
+        graph = model.graph
+        net = Int8FusedNet(model, device=DEVICE, params_f32=residual)
+        ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True, params_f32=residual)
+        base = Int8Net(model, residual, device=DEVICE)
+        want = dict(zip(wrappers, jax_sites))
+        kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
+        if kinds != want:
+            raise AssertionError(f"{name} kernel sites {kinds}, the JAX routing {want}")
+        checks = [(s, b) for b in (batch, ODD_BATCH) for s in net.kernel_sites]
+        hold_sites(graph, size, checks, wrappers, max_err, gen)
+        x = torch.from_numpy(images).to(DEVICE)
+        out, launches, variants = launch_forward(ck, net, x)
+        if launches != want:
+            raise AssertionError(f"{name} launches {launches}, the JAX routing {want}")
+        if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
+            raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
+        with torch.no_grad():
+            equal_outputs(f"{name} vs plain versions", out, ref_net(x))
+        outs = out if isinstance(out, tuple) else (out,)
+        if det:
+            n = ZOO_PRIORS[name]
+            shapes = [(batch, n, 21), (batch, n, 4)]
+        elif name == "alexnet":
+            shapes = [(batch, 1000)]
+        else:
+            shapes = [(batch, size, size, 21)]
+        if [tuple(o.shape) for o in outs] != shapes or not all(
+                torch.isfinite(o).all() for o in outs):
+            raise AssertionError(f"{name} outputs {[tuple(o.shape) for o in outs]}")
+        if det:
+            sums = float((outs[0].sum(-1) - 1).abs().max())
+            if sums > 1e-4:
+                raise AssertionError(f"{name} confidences sum to 1 within {sums}")
+        card_cpu = hold_engines_card_vs_cpu(name, model, residual,
+                                            x[:1] if size == SEG_SIZE else x[:2], ENGINE_RTOL)
+        exact = phase_exact_products(
+            [(name, graph, [("baseline", base), ("fused", net)], size, (2, None, None))], gen)
+        ms, peak = forward_peak(net, x)
+        for node, kernel, op in net.kernel_sites:
+            xs = site_input(graph, size, kernel, node, batch, gen)
+            t = time_site(kernel, op, xs, wrappers, peaks, reps=10, rounds=3)
+            t.update(path=name, batch=batch, node=node)
+            sites.append(t)
+            del xs
+        mine = [t for t in sites if t["path"] == name]
+        by_kernel = {k: {"sites": len(ks), "device_ms": sum(t["device_ms"] for t in ks),
+                         "ms": sum(t["ms"] for t in ks), "bound_ms": sum(t["bound_ms"] for t in ks),
+                         "plain_ms": sum(t["plain_ms"] for t in ks),
+                         "library_device_ms": sum(t["library_device_ms"] or 0.0 for t in ks)}
+                     for k in wrappers if (ks := [t for t in mine if t["kernel"] == k])}
+        result[name] = {"launches": launches, "variants": variants, "card_vs_cpu": card_cpu,
+                        "exact_products": exact["checks"], "forward_ms": ms, "peak_bytes": peak,
+                        "batch": batch, "size": size, "prepare_s": prep_s,
+                        "ranges": "data-free" if data_free else "calibrated",
+                        "kernels": by_kernel}
+        print(f"zoo {name} {size}x{size} b{batch} ({result[name]['ranges']} ranges, prepared in "
+              f"{prep_s:.1f} s): sites == JAX routing {launches}, variants {variants}; every "
+              f"site bit-equal to plain at b{batch} and b{ODD_BATCH}; forward bit-equal to the "
+              f"plain-kernel net; baseline card vs CPU {card_cpu}; {exact['checks']} exact "
+              f"products bit-equal to float64 at b2; fused forward {ms:.3f} ms "
+              f"({batch / ms * 1e3:.1f} img/s), peak {peak / 2**30:.3f} GiB; kernels "
+              f"{by_kernel}", flush=True)
+        del prep, model, residual, net, ref_net, base, out, outs, x
+        torch.cuda.empty_cache()
+    print_sites(sites)
+    return {"models": result, "sites": sites}
+
+
 def main() -> int:
     import torch
 
@@ -1477,6 +1874,15 @@ def main() -> int:
     # 14. calibration (its launch counts are read around its forward)
     calib = phase_calibration(ck, wrappers, max_err, gen, images)
     detail["calibration"] = calib["detail"]
+
+    # 15. the native deployment path, 16. the AOT cold start, 17. the zoo
+    root = Path(__file__).resolve().parent
+    detail["deployment"] = phase_deployment(root, out_dir)
+    aot_run = phase_aot(root)
+    detail["aot"] = {k: v for k, v in aot_run.items() if k != "launches"}
+    zoo = phase_zoo(ck, wrappers, max_err, gen, peaks)
+    detail["zoo"] = zoo["models"]
+    detail["sites_zoo"] = zoo["sites"]
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -1501,7 +1907,9 @@ def main() -> int:
                                  "resnet18": r18["launches"][k],
                                  "ssd_lite": ssd["launches"][k],
                                  "deeplab_mnv2": seg["launches"][k],
-                                 "mobilenet_v2_calibrated": calib["launches"][k]},
+                                 "mobilenet_v2_calibrated": calib["launches"][k],
+                                 "mobilenet_v2_aot": aot_run["launches"][k],
+                                 **{m: r["launches"][k] for m, r in zoo["models"].items()}},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

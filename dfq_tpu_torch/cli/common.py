@@ -12,7 +12,6 @@ import argparse
 # ROADMAP.md item (section 1) that ports what they need
 UNPORTED = {
     "--stream": "streaming eval (parallel/stream): ROADMAP.md section 1, 'Parallel'",
-    "--aot-batch": "a serialized cold start (io/aot): ROADMAP.md section 1, 'io'",
 }
 
 

@@ -9,6 +9,8 @@ Examples::
         --engine fused --save-artifact out/r18_int8
     python -m dfq_tpu_torch.cli.run_cls --quantize --relu --equalize \\
         --engine int8 --checkpoint mobilenetv2.pth --data-dir /data/imagenet/val
+    python -m dfq_tpu_torch.cli.run_cls --quantize --relu --equalize \\
+        --engine fused --save-artifact out/mnv2 --aot-batch 128
 
 With ``--quantize --distill_range`` the activation ranges come from
 ZeroQ calibration (``dfq_tpu_torch.calib``): batches distilled from the
@@ -19,7 +21,10 @@ It runs on CUDA unless ``--device cpu`` is given. ``--engine sim`` is the
 f32 fake-quant simulator (``dfq_tpu_torch.graph.execute``), ``int8`` the
 baseline int8 engine (``Int8Net``), ``fused`` the fused engine on the
 hand-written kernels (``Int8FusedNet``). Without ``--data-dir`` it runs
-8 seeded 224x224 images and prints the logits' shape.
+8 seeded 224x224 images and prints the logits' shape. ``--aot-batch B``
+(with ``--engine fused --save-artifact DIR``, on the card) ships the
+kernel libraries the forward ran in ``DIR/aot/``; reload with
+``dfq_tpu_torch.io.aot.load_aot_forward(DIR)``, which needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import time
 import numpy as np
 
 from dfq_tpu_torch.calib import calibrate_ranges, distill_data
+from dfq_tpu_torch.io import aot
 from dfq_tpu_torch.cli.common import (
     add_dfq_flags,
     distill_config,
@@ -80,7 +86,10 @@ def main(argv=None) -> dict:
     args = get_argument(argv)
     # streaming changes only how --data-dir's batches are fed (JAX ignores
     # the flag without it)
-    refuse_unported(args, ("--aot-batch",) + (("--stream",) if args.data_dir else ()))
+    refuse_unported(args, ("--stream",) if args.data_dir else ())
+    if args.aot_batch and not (args.quantize and args.engine == "fused" and args.save_artifact):
+        raise SystemExit("--aot-batch ships the fused engine's kernels in the artifact: it "
+                         "needs --quantize --engine fused --save-artifact DIR")
 
     import torch
 
@@ -88,6 +97,11 @@ def main(argv=None) -> dict:
     from dfq_tpu_torch.pipeline import QuantConfig, prepare
 
     device = resolve_device(args.device)
+    if args.aot_batch:
+        try:
+            aot.current_meta(device)
+        except ValueError as e:
+            raise SystemExit(f"--aot-batch: {e}") from None
     graph, params = build_model(args)
     cfg = QuantConfig(
         quantize=args.quantize, relu=args.relu, equalize=args.equalize,
@@ -116,6 +130,11 @@ def main(argv=None) -> dict:
 
     fwd, out = engine_forward(prep, cfg, args.engine, device, args.save_artifact)
     out["forward"] = fwd
+    if args.aot_batch:
+        # the kernel libraries the forward ran, in the artifact: a process
+        # on a matching card starts from it with no nvcc (io/aot.py)
+        aot.save_aot_forward(args.save_artifact, fwd, args.aot_batch, 224)
+        print(f"AOT kernels (batch {args.aot_batch}) saved into the artifact")
 
     acc = None
     with torch.no_grad():

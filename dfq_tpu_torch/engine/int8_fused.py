@@ -267,6 +267,24 @@ def xla_cpu_mean_sum(x: torch.Tensor, fused_producer: bool) -> torch.Tensor:
     return acc
 
 
+def _blocks_that_run(graph: Graph, blocks):
+    """The blocks of ``blocks`` a forward runs. A forward walks the graph in
+    order and skips what an earlier block fused away, so where chains
+    overlap (MobileNetV1's pw -> dw -> pw -> dw -> pw: a block's project is
+    the next block's expand) the later block never runs and its depthwise
+    conv runs alone, in both engines (``int8_fused.py:419-420``)."""
+    done: set = set()
+    kept = {}
+    for node in graph:
+        info = blocks.get(node.name)
+        if info is None or node.name in done:
+            continue
+        kept[node.name] = info
+        done.update(info["skip"])
+        done.add(info["final"])
+    return kept
+
+
 def _is_pw(node) -> bool:
     a = node.attrs
     return (node.op == "conv" and a["kernel"] == (1, 1) and a["groups"] == 1
@@ -315,7 +333,7 @@ class Int8FusedNet(nn.Module):
         self.params = params_to(params_f32 or {}, self.device)
         graph = model.graph
         self.plan = _consumer_plan(graph, model)
-        self.blocks = _find_fusable_blocks(graph, model, self.plan)
+        self.blocks = _blocks_that_run(graph, _find_fusable_blocks(graph, model, self.plan))
         self._fused_away = {n for b in self.blocks.values() for n in b["skip"]}
         self._fused_away.update(b["final"] for b in self.blocks.values())
         self._fused_away.update(self.blocks)

@@ -1,6 +1,6 @@
-"""DeepLab-v3+ with MobileNetV2 backbone as a graph IR builder (a copy of
-the MobileNetV2 part of ``dfq_tpu/models/deeplab.py``; its Xception, DRN
-and ResNet-101 backbones are not ported yet).
+"""DeepLab-v3+ as a graph IR builder, with the MobileNetV2, Aligned
+Xception, DRN-D-54 and ResNet-101 backbones (a copy of
+``dfq_tpu/models/deeplab.py``).
 
 Mirrors the reference architecture
 (``modeling/segmentation/deeplab.py:9-36``,
@@ -175,6 +175,136 @@ def deeplab_mobilenet_v2(
     x = _aspp_and_decoder(
         b, x, low_level,
         inplanes=320, low_level_ch=24, h=h, low_h=low_h,
+        n_class=n_class, output_stride=output_stride, input_size=input_size,
+    )
+    return b.build([x])
+
+
+def deeplab_xception(
+    n_class: int = 21,
+    output_stride: int = 16,
+    input_size: int = 513,
+) -> Graph:
+    """DeepLab-v3+ with the Aligned Xception backbone (reference
+    ``backbone/xception.py``); ASPP inplanes 2048, low-level 128ch
+    (``aspp.py:58-62``, ``decoder.py:11-12``)."""
+    from dfq_tpu_torch.models.xception import xception_backbone
+
+    b = GraphBuilder()
+    x = b.input("data")
+    x, low_level = xception_backbone(b, x, output_stride)
+    stride_all = output_stride
+    h = (input_size - 1) // stride_all + 1
+    low_h = (input_size - 1) // 4 + 1
+    x = _aspp_and_decoder(
+        b, x, low_level,
+        inplanes=2048, low_level_ch=128, h=h, low_h=low_h,
+        n_class=n_class, output_stride=output_stride, input_size=input_size,
+    )
+    return b.build([x])
+
+
+def deeplab_drn(
+    n_class: int = 21,
+    input_size: int = 513,
+) -> Graph:
+    """DeepLab-v3+ with DRN-D-54 (reference forces output_stride 8 for
+    DRN, ``deeplab.py:13-14``; ASPP inplanes 512, low-level 256ch)."""
+    from dfq_tpu_torch.models.drn import drn_d_54_backbone
+
+    b = GraphBuilder()
+    x = b.input("data")
+    x, low_level = drn_d_54_backbone(b, x)
+    h = (input_size - 1) // 8 + 1
+    low_h = (input_size - 1) // 4 + 1
+    x = _aspp_and_decoder(
+        b, x, low_level,
+        inplanes=512, low_level_ch=256, h=h, low_h=low_h,
+        n_class=n_class, output_stride=8, input_size=input_size,
+    )
+    return b.build([x])
+
+
+def deeplab_resnet101(
+    n_class: int = 21,
+    output_stride: int = 16,
+    input_size: int = 513,
+) -> Graph:
+    """DeepLab-v3+ with the ResNet-101 backbone (reference
+    ``backbone/resnet.py``): Bottleneck blocks, os16 strides [1,2,2,1]
+    with dilation 2 in layer4 and multi-grid [1,2,4]
+    (``resnet.py:50-58,97-120``); low-level tap = layer1 output (256ch),
+    ASPP inplanes 2048 (``aspp.py:58-62``, ``decoder.py:13-14``)."""
+    b = GraphBuilder()
+    x = b.input("data")
+    h = input_size
+    x = b.conv("backbone.conv1", x, 3, 64, (7, 7), stride=(2, 2), padding=(3, 3))
+    h = (h + 2 * 3 - 7) // 2 + 1
+    x = b.bn("backbone.bn1", x, 64)
+    x = b.relu("backbone.relu", x)
+    x = b.maxpool("backbone.maxpool", x, window=(3, 3), stride=(2, 2), padding=(1, 1))
+    h = (h + 2 - 3) // 2 + 1
+
+    if output_stride == 16:
+        strides = [1, 2, 2, 1]
+        dils = [1, 1, 1, 2]
+    else:
+        strides = [1, 2, 1, 1]
+        dils = [1, 1, 2, 4]
+    multi_grid = [1, 2, 4]
+    layer_blocks = [3, 4, 23, 3]  # ResNet-101
+    planes_per = [64, 128, 256, 512]
+    inplanes = 64
+    low_level = None
+    low_h = None
+
+    def bottleneck(prefix, x, inp, planes, stride, dilation, downsample):
+        out_ch = planes * 4
+        block_in = x
+        y = b.conv(f"{prefix}.conv1", x, inp, planes, (1, 1))
+        y = b.bn(f"{prefix}.bn1", y, planes)
+        y = b.relu(f"{prefix}.relu1", y)
+        y = b.conv(
+            f"{prefix}.conv2", y, planes, planes, (3, 3),
+            stride=(stride, stride), padding=(dilation, dilation),
+            dilation=(dilation, dilation),
+        )
+        y = b.bn(f"{prefix}.bn2", y, planes)
+        y = b.relu(f"{prefix}.relu2", y)
+        y = b.conv(f"{prefix}.conv3", y, planes, out_ch, (1, 1))
+        y = b.bn(f"{prefix}.bn3", y, out_ch)
+        if downsample:
+            sc = b.conv(
+                f"{prefix}.downsample.0", block_in, inp, out_ch, (1, 1),
+                stride=(stride, stride),
+            )
+            sc = b.bn(f"{prefix}.downsample.1", sc, out_ch)
+        else:
+            sc = block_in
+        y = b.add(f"{prefix}.add", sc, y)
+        return b.relu(f"{prefix}.relu3", y)
+
+    for li in range(4):
+        planes = planes_per[li]
+        n_blocks = layer_blocks[li]
+        stride = strides[li]
+        dil = dils[li]
+        for bi in range(n_blocks):
+            prefix = f"backbone.layer{li + 1}.{bi}"
+            st = stride if bi == 0 else 1
+            d = dil * multi_grid[bi] if li == 3 else dil  # MG unit in layer4
+            down = bi == 0 and (st != 1 or inplanes != planes * 4)
+            x = bottleneck(prefix, x, inplanes, planes, st, d, down)
+            if st == 2:
+                h = (h - 1) // 2 + 1
+            inplanes = planes * 4
+        if li == 0:
+            low_level = x
+            low_h = h
+
+    x = _aspp_and_decoder(
+        b, x, low_level,
+        inplanes=2048, low_level_ch=256, h=h, low_h=low_h,
         n_class=n_class, output_stride=output_stride, input_size=input_size,
     )
     return b.build([x])

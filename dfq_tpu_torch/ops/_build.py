@@ -87,6 +87,27 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
+def sources_digest() -> str:
+    """sha256 over ``NVCC_FLAGS`` and every source a library is built from
+    (each ``.cuh`` and each of ``SOURCES``): what a prebuilt library must
+    have been built from for the wrappers of this tree to call it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / s for s in SOURCES]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()
+
+
+def load_prebuilt(paths: Dict[str, Path]) -> None:
+    """Load ``{source: library}`` built elsewhere (an artifact's ``aot/``)
+    as the libraries of those sources, so :func:`library` never builds
+    them. The caller has checked that they were built from this tree's
+    sources (:func:`sources_digest`)."""
+    with _lock:
+        for s, path in paths.items():
+            _libs[s] = ctypes.CDLL(str(path))
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of one source (building all of them at first
     use)."""

@@ -744,8 +744,9 @@ def fused_block_plan(N: int, H: int, W: int, C: int, E: int, C2: int, aligned: b
     multiple of 4; it is padded to whole chunks in the packed weights)
     with aligned x and out, whenever a slab of at least one row fits its
     tiles (``wx``-pixel rows as m16 tiles over an instance of
-    ``FB_WARP_TILES``) and shared memory. Slabs are at most ``FB_MAX_ROWS``
-    rows, evened out over H; where that leaves a quarter of the SMs or more
+    ``FB_WARP_TILES``) and shared memory, its output columns shared by 2
+    or 4 blocks where no slab holds them all. Slabs are at most
+    ``FB_MAX_ROWS`` rows, evened out over H; where that leaves a quarter of the SMs or more
     without a block the slabs are halved (down to 2 rows: each halving
     recomputes more halo rows of the expand), then the output columns are
     split over up to 4 blocks, each of which recomputes expand and depthwise."""
@@ -759,10 +760,17 @@ def fused_block_plan(N: int, H: int, W: int, C: int, E: int, C2: int, aligned: b
     def evened(rows):
         return -(-H // -(-H // rows))
 
-    bh, csplit = evened(min(H, FB_MAX_ROWS)), 1
-    while bh > 1 and candidate(bh, csplit) is None:
-        bh = evened(bh - 1)
     nt = C2 // 8
+    bh, csplit = evened(min(H, FB_MAX_ROWS)), 1
+    while candidate(bh, csplit) is None:
+        if bh > 1:
+            bh = evened(bh - 1)
+        elif csplit < 4 and nt % (2 * csplit) == 0 and nt // (2 * csplit) >= 2:
+            # no slab holds all the output columns (MobileNetV1's C2 = 1024):
+            # share them out, whatever the batch
+            bh, csplit = evened(min(H, FB_MAX_ROWS)), 2 * csplit
+        else:
+            break
     # more blocks where a quarter of the card or more would stand idle
     while 4 * N * -(-H // bh) * csplit < 3 * sms:
         if bh > 2 and candidate(evened(-(-bh // 2)), csplit):

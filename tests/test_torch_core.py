@@ -189,6 +189,11 @@ def test_import_isolation():
         "import dfq_tpu_torch.calib, dfq_tpu_torch.calib.distill, dfq_tpu_torch.calib.calibrate\n"
         "import dfq_tpu_torch.calib.recon, dfq_tpu_torch.calib.distill_correct\n"
         "import dfq_tpu_torch.passes.learned_scale, dfq_tpu_torch.cli.run_zeroq\n"
+        "import dfq_tpu_torch.io.native_export, dfq_tpu_torch.io.checkpoint\n"
+        "import dfq_tpu_torch.io.aot, dfq_tpu_torch.engine.native, dfq_tpu_torch.cli.convert\n"
+        "import dfq_tpu_torch.models.alexnet, dfq_tpu_torch.models.xception\n"
+        "import dfq_tpu_torch.models.drn, dfq_tpu_torch.models.ssd_variants\n"
+        "import dfq_tpu_torch.data.open_images\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

@@ -510,3 +510,70 @@ def test_calibrate_ranges_card_vs_cpu(dev):
     for site, (lo, hi) in cpu.items():
         step = (hi - lo) / 255.0
         assert abs(card[site][0] - lo) <= step and abs(card[site][1] - hi) <= step, site
+
+
+def test_aot_payload_round_trip_on_the_card(dev, tmp_path):
+    """``run_cls --aot-batch`` writes the kernel libraries and meta.json;
+    ``load_aot_forward`` gives the exporting forward's logits bit for bit;
+    another card's name in meta.json is refused."""
+    import json
+
+    from dfq_tpu_torch.cli import run_cls
+    from dfq_tpu_torch.io import aot
+    from dfq_tpu_torch.ops import _build
+
+    art = tmp_path / "art"
+    out = run_cls.main(["--quantize", "--relu", "--equalize", "--engine", "fused",
+                        "--save-artifact", str(art), "--aot-batch", "4"])
+    meta = json.loads((art / "aot" / "meta.json").read_text())
+    assert meta["batch"] == 4 and meta["device_name"] == torch.cuda.get_device_name(dev)
+    assert meta["sources_sha256"] == _build.sources_digest()
+    assert sorted(meta["libraries"]) == sorted(_build.SOURCES)
+    fwd = aot.load_aot_forward(str(art))
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (8, 224, 224, 3)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        assert np.array_equal(fwd(x).cpu().numpy(), out["logits"])
+    (art / "aot" / "meta.json").write_text(json.dumps(dict(meta, capability="8.0")))
+    with pytest.raises(ValueError, match="re-export on matching hardware"):
+        aot.load_aot_forward(str(art))
+
+
+def test_native_runtime_against_the_card(dev, tmp_path):
+    """``convert --validate``: the native runtime on the host against
+    ``Int8Net`` on the card, every top-1 equal, under the contract of
+    tests/test_native_runtime.py."""
+    from dfq_tpu_torch.cli import convert
+
+    out = convert.main(["--relu", "--equalize", "--validate", "--out", str(tmp_path / "m")])
+    d = np.abs(out["native"] - out["engine"])
+    assert out["top1_agreement"] == 1.0
+    assert d.mean() < 2e-3 and d.max() < 5e-2 and float(np.mean(d < 5e-3)) > 0.9
+
+
+@pytest.mark.parametrize("N", [1, 8, 128])
+def test_fused_block_mma_variant_at_the_mobilenet_v1_c2_1024_block(dev, N):
+    """MobileNetV1's last block (10x10, C 512, E 1024, C2 1024) shares its
+    output columns over blocks at every batch (the plan repair of
+    ``fused_block_plan``) and equals the plain version."""
+    rng = np.random.default_rng(N)
+    H, C, E, C2 = 10, 512, 1024, 1024
+    w1 = rng.integers(-128, 128, (C, E)).astype(np.int8)
+    w2 = rng.integers(-128, 128, (E, C2)).astype(np.int8)
+    op = ck.pack_fused_block(
+        w1, rng.uniform(1e-5, 5e-5, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32), w1.astype(np.int32).sum(0),
+        rng.integers(-128, 128, (9, E)).astype(np.int8),
+        rng.uniform(1e-3, 4e-3, E).astype(np.float32),
+        rng.normal(0, 0.5, E).astype(np.float32),
+        w2, rng.uniform(1e-6, 1e-5, C2).astype(np.float32),
+        rng.normal(0, 0.5, C2).astype(np.float32), w2.astype(np.int32).sum(0),
+        x_grid=(0.0412, -9), c1_grid=(0.0412, -9), e_grid=(0.0213, -128),
+        d_grid=(0.0531, -128), act1_hi=3.4e38, act2_hi=3.4e38, out_grid=(0.0622, -1),
+        device=dev)
+    assert ck.fused_block_plan(N, H, H, C, E, C2).variant == "mma"
+    x = torch.from_numpy(rng.integers(-128, 128, (N, H, H, C)).astype(np.int8)).to(dev)
+    ck.reset_counts()
+    got = ck.fused_block_int8_packed(x, op)
+    assert ck.VARIANTS["fused_block_int8"] == {"mma": 1, "general": 0}
+    _equal(got, ck.fused_block_int8_plain(x, op))

@@ -944,3 +944,50 @@ def test_fused_block_plan_ssd_sites(site, N):
     if N == 8:
         assert plan.bh == {75: 6, 38: 3, 19: 2, 10: 2}[H]
         assert (H % plan.bh != 0) == (H != 10)
+
+
+# MobileNetV1's K3 blocks (H = W, C, E, C2): its pw -> dw s1 -> pw chains in
+# the MobileNetV1-SSD backbones at 300x300 (blocks 2-3, 4-5, 6-7, 8-9 and
+# 10-11, 12-13)
+MB1_K3_SITES = [(75, 64, 128, 128), (38, 128, 256, 256), (19, 256, 512, 512),
+                (19, 512, 512, 512), (10, 512, 1024, 1024)]
+
+
+@pytest.mark.parametrize("N", [1, 3, 8, 10, 128])
+@pytest.mark.parametrize("site", MB1_K3_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_block_plan_mobilenet_v1_sites(site, N):
+    """The tensor-core variant at every batch. At C2 = 1024 no slab holds
+    all the output columns, so they are shared by 2 or 4 blocks at every
+    batch, also where the batch alone fills the card (from batch 10)."""
+    H, C, E, C2 = site
+    plan = ck.fused_block_plan(N, H, H, C, E, C2)
+    _check_fused_plan(plan, N, H, H, C, E, C2)
+    assert plan == ck.fused_block_candidate(N, H, H, C, E, C2, plan.bh, plan.grid[1])
+    if C2 == 1024:
+        assert ck.fused_block_candidate(N, H, H, C, E, C2, 1, 1) is None
+        assert plan.grid[1] in (2, 4)
+
+
+# the zoo's K1 shape classes that leave the tensor-core variant, (rows per
+# image, K, N): AlexNet's classifier (K 9216 and 4096 after the flatten),
+# a K of 2048 (Xception's ASPP, DRN's layer6 and ResNet-101's layer4 at
+# DeepLab 513x513), N = 126 at MobileNetV1-SSD-Lite's and
+# SqueezeNet-SSD-Lite's class heads
+ZOO_DP4A_SITES = [(1, 9216, 4096), (1, 4096, 4096), (1, 4096, 1000), (33 * 33, 2048, 256),
+                  (65 * 65, 2048, 512), (33 * 33, 2048, 512), (19 * 19, 512, 126),
+                  (10 * 10, 1024, 126), (17 * 17, 512, 126)]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 128])
+@pytest.mark.parametrize("site", ZOO_DP4A_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_matmul_plan_zoo_sites_on_dp4a(site, batch):
+    """The mma variant stages whole 128-row tiles of x in shared memory, so
+    a K past ~1.8k cannot take it (one tile of K = 2048 is 266 KB), nor can
+    an N that is not a multiple of 8: these take the dp4a variant, which
+    walks K in 32-byte steps and accumulates in int32 (|sum| <= K * 2^14 <
+    2^31 at K = 9216)."""
+    rows, K, N = site
+    assert ck.matmul_plan(rows * batch, K, N) == ck.MatmulPlan("dp4a")
+    assert K * 128 * 128 < 2**31
+    if N % 8 == 0:
+        assert ck.MM_TILE_M * ck.matmul_pitch(K) > ck.SMEM_BUDGET
