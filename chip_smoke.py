@@ -149,12 +149,38 @@ Phases, in order; any failure exits non-zero:
    engine on the card against the CPU within ``ENGINE_RTOL`` (DeepLab at
    1 image, the others at 2), phase 9's float64 check of every other int8
    product at batch 2, the fused forward's median ms and peak memory, and
-   every kernel site's time beside its bound, plain version and yardstick.
+   every kernel site's time beside its bound, plain version and yardstick;
+18. ``dfq_tpu_torch.parallel`` at full width on the one card (a mesh may
+   name a device more than once): MobileNetV2 224x224 at b128 through
+   ``make_sharded_forward`` and ``make_sharded_eval`` (fused engine) on
+   ``data_mesh()`` and on 4 and 3 shards of the card (b32; 43 / 43 / 42):
+   the logits bit-equal to the single forward, the counters equal, 11 / 1
+   / 12 launches a shard, every kernel site bit-equal to its plain version
+   at b32 and b42, the forward's ms beside the single forward's at the
+   global and the shard batches; 6 host batches of b128 through
+   ``make_streaming_eval`` (depth 2) and the synchronous loop (counters
+   equal, ms a batch) and the host syncs of the fused forward and of a
+   stream, as ``torch.cuda.set_sync_debug_mode("warn")`` reports them;
+   DeepLab 513x513 b4 on 2 shards (``make_sharded_seg_eval``: the
+   confusion matrix equal to ``SegEvaluator``'s on the single forward);
+   the distillation step at b64 (f32) on 4 shards against the
+   single-device step (loss within ``PAR_LOSS_RTOL``, gradient within
+   ``DIS_GRAD_RTOL`` of its max, both read from the steps' own Adam
+   states, the stepped images within ``PAR_X1_RTOL`` of their max at
+   every pixel whose gradient is above ``PAR_X1_G_FLOOR``, with the pixels
+   outside that limit counted, ms a step); ``make_tp_int8_forward`` on a
+   2x2 mesh at b8 against ``Int8Net`` (within ``TOL`` of the largest
+   logit, equal argmax); a one-process NCCL group (``multihost.initialize``): the
+   ``all_reduce`` sum and counters of ``make_global_batch`` equal to the
+   local ones; ``multibox_loss`` at SSD-Lite's 3000 priors, b32 x 21
+   classes, on the card against the CPU (equal masks, within
+   ``MULTIBOX_RTOL``).
 
-Phases 12 and 13 run after 10 and before 11, and 14 to 17 after 11. It
+Phases 12 and 13 run after 10 and before 11, and 14 to 18 after 11. It
 prints the ``kernels`` JSON line (with each kernel's launches on each
-model's path: the calibrated, the AOT and the zoo's included), then the
-card line, then as the last line ``{"ok": true, "device": {...}}``.
+model's path: the calibrated, the AOT, the zoo's and the sharded
+included), then the card line, then as the last line ``{"ok": true,
+"device": {...}}``.
 Per-site details go to ``chiprun_out/chip_smoke.json``. Without CUDA it
 exits 2 and prints no result.
 """
@@ -1558,6 +1584,361 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
     return {"models": result, "sites": sites}
 
 
+# phase 18: the global batch of the data-parallel forwards, the shard counts
+# of its meshes on the one card, and the host batches of the stream
+PAR_BATCH = 128
+PAR_SHARDS = (4, 3)  # b32 each; uneven 43 / 43 / 42
+PAR_SITE_BATCHES = (32, 42)
+STREAM_BATCHES = 6
+SEG_SHARDS = 2
+DIS_SHARDS = 4
+# the sharded distillation step against the single-device step: the loss,
+# relative; the gradient, of its largest magnitude, to phase 14's limit; the
+# images after the step, of their largest magnitude, to the same limit at
+# every pixel whose single-device gradient is above PAR_X1_G_FLOOR (see
+# phase_parallel). Adam's first step moves a pixel by lr * g / (|g| + eps),
+# so a gradient error dg moves it by about lr * eps * dg / |g|^2: at the
+# gradient's limit (1e-4 of its max, 6.4e-4 at this seed) and |g| = 1e-6
+# that is 6.4e-5, under the images' limit (1e-4 of their max, 2.6e-4)
+PAR_LOSS_RTOL = 1e-5
+PAR_X1_RTOL = DIS_GRAD_RTOL
+ADAM_B1, ADAM_EPS = 0.9, 1e-8
+PAR_X1_G_FLOOR = 1e2 * ADAM_EPS
+TP_MESH = (2, 2)
+MULTIBOX_BATCH = 32
+MULTIBOX_RTOL = 1e-5
+
+
+def sync_warnings(fn) -> list:
+    """The host synchronisations ``fn()`` makes, one entry each, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (a sync would
+    serialise the stream's pipeline; the mode's notice that it is a
+    prototype is left out)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: dict) -> dict:
+    """18. ``dfq_tpu_torch.parallel`` at full width on the card: the
+    data-parallel fused forward and eval of MobileNetV2 224x224 at b128 on
+    1, 4 and 3 shards (bit-equal to the single forward, 11 / 1 / 12
+    launches a shard, every kernel site bit-equal to its plain version at
+    the shard batches), the stream against the synchronous loop, DeepLab's
+    sharded confusion matrix, the sharded distillation step, the
+    tensor-parallel baseline engine, a one-process NCCL group's reductions
+    and ``multibox_loss`` on the card against the CPU."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from dfq_tpu_torch.calib.distill import (
+        AdamState,
+        DistillConfig,
+        adam_step,
+        init_random_batch,
+        loss_and_grad,
+        make_loss_fn,
+    )
+    from dfq_tpu_torch.detection.losses import MatchPrior, hard_negative_mining, multibox_loss
+    from dfq_tpu_torch.engine import Int8Net
+    from dfq_tpu_torch.metrics import SegEvaluator
+    from dfq_tpu_torch.models.ssd import SSDConfig
+    from dfq_tpu_torch.parallel import (
+        data_mesh,
+        make_sharded_distill_step,
+        make_sharded_eval,
+        make_sharded_forward,
+        make_sharded_seg_eval,
+        make_streaming_eval,
+        make_tp_int8_forward,
+        tp_mesh,
+    )
+    from dfq_tpu_torch.parallel import multihost
+    from dfq_tpu_torch.parallel.eval import count_correct
+
+    detail, launches_by_path = {}, {}
+    model, residual, net = main_path["model"], main_path["residual"], main_path["net"]
+    graph = model.graph
+    per_shard = {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1, "fused_block_int8": 12}
+    card = data_mesh().devices[0]  # the card, as a mesh names it
+    smi = nvidia_smi_line()
+
+    # 1. the data-parallel fused forward and eval
+    hold_sites(graph, SIZE, [(s, b) for b in PAR_SITE_BATCHES for s in net.kernel_sites],
+               wrappers, max_err, gen)
+    rng = np.random.default_rng(18)
+    x_host = np.clip(rng.standard_normal((PAR_BATCH, SIZE, SIZE, 3), np.float32), -2.117, 2.64)
+    x = torch.from_numpy(x_host).to(DEVICE)
+    with torch.no_grad():
+        single = net(x)
+    pred = single.argmax(-1).cpu().numpy()
+    labels = np.where(np.arange(PAR_BATCH) % 2 == 0, pred, (pred + 1) % 1000)
+    want_counts = (int((pred == labels).sum()), PAR_BATCH)
+    meshes = {f"mobilenet_v2_sharded_{n}": data_mesh(devices=[card] * n) for n in PAR_SHARDS}
+    meshes = {"mobilenet_v2_data_mesh": data_mesh(), **meshes}
+    dp = {}
+    for path, mesh in meshes.items():
+        fwd = make_sharded_forward(None, residual, mesh, int8_model=model, engine="fused")
+        with torch.no_grad():
+            ck.reset_counts()
+            out = fwd(x)
+            torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
+        n = mesh.size
+        if launches != {k: v * n for k, v in per_shard.items()}:
+            raise AssertionError(f"{path}: launches {launches} over {n} shards")
+        if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
+            raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
+        equal_outputs(f"{path} vs the single forward", out.gather(), single)
+        counts = make_sharded_eval(None, residual, mesh, int8_model=model,
+                                   engine="fused")(x, labels)
+        if counts != want_counts:
+            raise AssertionError(f"{path}: counters {counts}, single forward {want_counts}")
+        ms = forward_ms(fwd, x)
+        launches_by_path[path] = launches
+        dp[path] = {"shards": [int(s.shape[0]) for s in out.shards], "launches": launches,
+                    "variants": variants, "counts": counts, "forward_ms": ms}
+        print(f"{path}: shards {dp[path]['shards']}, logits bit-equal to the single b"
+              f"{PAR_BATCH} forward, counters {counts}, launches {launches}, variants "
+              f"{variants}; forward {ms:.3f} ms ({PAR_BATCH / ms * 1e3:.0f} img/s) on {smi}",
+              flush=True)
+    # the single forward at the global batch and at each shard's batch
+    single_ms = {b: forward_ms(net, x[:b]) for b in (PAR_BATCH, 43, 42, 32)}
+    print(f"single forward ms by batch {single_ms} on {smi}; every kernel site bit-equal to "
+          f"its plain version at b{PAR_SITE_BATCHES}", flush=True)
+    detail["data_parallel"] = dp
+    detail["single_forward_ms"] = single_ms
+
+    # 2. the stream against the synchronous loop
+    batches = [(np.clip(rng.standard_normal((PAR_BATCH, SIZE, SIZE, 3), np.float32),
+                        -2.117, 2.64), rng.integers(0, 1000, PAR_BATCH))
+               for _ in range(STREAM_BATCHES)]
+    batches[0] = (x_host, labels)
+    mesh1 = data_mesh()
+    sync_run = make_sharded_eval(None, residual, mesh1, int8_model=model, engine="fused")
+    stream_run = make_streaming_eval(None, residual, mesh1, int8_model=model, engine="fused")
+
+    def sync_loop():
+        got = [sync_run(xb, lb) for xb, lb in batches]
+        return sum(c for c, _ in got), sum(t for _, t in got)
+
+    sync_loop(), stream_run(iter(batches))  # warm-up: the pinned host blocks
+    times = {}
+    for name, fn in (("sync", sync_loop), ("stream", lambda: stream_run(iter(batches)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        times[name] = (time.perf_counter() - t0) * 1e3 / STREAM_BATCHES
+        detail[f"{name}_counts"] = result
+    if detail["sync_counts"] != detail["stream_counts"]:
+        raise AssertionError(f"stream counters {detail['stream_counts']} != sync "
+                             f"{detail['sync_counts']}")
+    with torch.no_grad():
+        syncs = sync_warnings(lambda: net(x))
+    # a stream of n batches reads its n counters: n syncs, and no more
+    stream_syncs = sync_warnings(lambda: stream_run(iter(batches[:3])))
+    detail["stream_ms_per_batch"] = times
+    detail["forward_host_syncs"] = syncs
+    detail["stream_host_syncs_3_batches"] = stream_syncs
+    print(f"stream (depth 2) vs sync over {STREAM_BATCHES} host batches of b{PAR_BATCH}: "
+          f"counters {detail['stream_counts']} equal; ms a batch: sync {times['sync']:.3f}, "
+          f"stream {times['stream']:.3f}; host syncs in the fused forward: {syncs or 'none'}; "
+          f"in a stream of 3 batches: {len(stream_syncs)} {sorted(set(stream_syncs))}",
+          flush=True)
+    del batches
+
+    # 3. DeepLab's sharded confusion matrix
+    seg_model, seg_net = seg_path["model"], seg_path["net"]
+    seg_residual = {k: v for k, v in seg_path["prep"].params.items()
+                    if k not in seg_model.layers}
+    xs = torch.from_numpy(seg_path["images"][:SEG_BATCH]).to(DEVICE)
+    gt = rng.integers(0, 21, (SEG_BATCH, SEG_SIZE, SEG_SIZE))
+    gt[rng.random(gt.shape) < 0.1] = 255
+    with torch.no_grad():
+        seg_pred = seg_net(xs).argmax(-1).cpu().numpy()
+    ev = SegEvaluator(21)
+    ev.add_batch(gt, seg_pred)
+    seg_mesh = data_mesh(devices=[card] * SEG_SHARDS)
+    seg_eval = make_sharded_seg_eval(None, seg_residual, seg_mesh, 21, int8_model=seg_model,
+                                     engine="fused")
+    ck.reset_counts()
+    conf = seg_eval(xs, gt)
+    launches_by_path[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = dict(ck.LAUNCHES)
+    if dict(ck.LAUNCHES) != {"matmul_int8_requant": 38 * SEG_SHARDS, "dw3x3_int8_requant": 0,
+                             "fused_block_int8": 0}:
+        raise AssertionError(f"sharded DeepLab launches {ck.LAUNCHES}")
+    if not np.array_equal(conf, ev.confusion_matrix):
+        raise AssertionError("sharded DeepLab confusion matrix != SegEvaluator's on the single "
+                             "forward")
+    detail["seg_confusion_sum"] = int(conf.sum())
+    print(f"DeepLab {SEG_SIZE}x{SEG_SIZE} b{SEG_BATCH} on {SEG_SHARDS} shards: confusion matrix equal to "
+          f"SegEvaluator's on the single forward ({int(conf.sum())} valid pixels), launches "
+          f"{launches_by_path[f'deeplab_mnv2_sharded_{SEG_SHARDS}']}", flush=True)
+    del xs
+
+    # 4. the sharded distillation step against the single-device step
+    prep = main_path["prep"]
+    cfg = DistillConfig(batch_size=DIS_BATCH, compute_dtype="f32", device=DEVICE)
+    x0 = init_random_batch(np.random.default_rng(0), cfg)
+    loss_fn, _ = make_loss_fn(prep.graph, prep.params_fp, cfg)
+    x0_t = torch.from_numpy(x0).to(DEVICE)
+
+    def single_step():
+        st = AdamState.init(x0_t, cfg.lr, injected=False)
+        loss, grad = loss_and_grad(loss_fn, x0_t)
+        with torch.no_grad():
+            return adam_step(x0_t, grad, st), loss, st
+
+    step, init = make_sharded_distill_step(prep.graph, prep.params_fp, cfg,
+                                           data_mesh(devices=[card] * DIS_SHARDS))
+
+    def sharded_step():
+        xd, st = init(x0_t)
+        x1, st, loss = step(xd, st)
+        return x1, loss, st
+
+    x1_single, loss_single, st_single = single_step()
+    x1_sharded, loss_sharded, st_sharded = sharded_step()
+    x1_sharded = x1_sharded.gather()
+    # the gradients the two steps took, read from their own Adam states:
+    # after the first step from zero moments, mu = (1 - b1) g, rounded once
+    # (the backward's convs are not bit-reproducible on the card, so a
+    # gradient derived again here would not be the one a step took)
+    mu_single = st_single.mu
+    mu_sharded = torch.cat([st.mu for st in st_sharded])
+    loss_rel = abs(float(loss_sharded) - float(loss_single)) / abs(float(loss_single))
+    grad_rel = float((mu_sharded - mu_single).abs().max() / mu_single.abs().max())
+    # where |g| is near eps, a last-bit gradient difference (the shards'
+    # convs run at another batch) moves a pixel by up to 2 lr: the images
+    # are held where |g| > PAR_X1_G_FLOOR, and the pixels over the limit,
+    # with the largest |g| among them, show the cause
+    dx1 = (x1_sharded - x1_single).abs()
+    x1_limit = PAR_X1_RTOL * float(x1_single.abs().max())
+    g_abs = mu_single.abs() / (1.0 - ADAM_B1)
+    held = g_abs > PAR_X1_G_FLOOR
+    over = dx1 > x1_limit
+    x1_rel_held = float(dx1[held].max()) / float(x1_single.abs().max())
+    x1_rel = float(dx1.max()) / float(x1_single.abs().max())
+    n_low = int((~held).sum())
+    n_over = int(over.sum())
+    g_over = float(g_abs[over].max()) if n_over else None
+    ms_single = host_ms(lambda: (single_step(), torch.cuda.synchronize()))
+    ms_sharded = host_ms(lambda: (sharded_step(), torch.cuda.synchronize()))
+    detail["distill"] = {"batch": DIS_BATCH, "shards": DIS_SHARDS, "loss_rel": loss_rel,
+                         "grad_rel_of_max": grad_rel, "grad_max_abs": float(g_abs.max()),
+                         "x1_rel_of_max": x1_rel, "x1_rel_of_max_held": x1_rel_held,
+                         "pixels": int(dx1.numel()), "pixels_below_g_floor": n_low,
+                         "pixels_over_limit": n_over, "max_abs_g_over_limit": g_over,
+                         "ms_per_step_single": ms_single, "ms_per_step_sharded": ms_sharded}
+    if loss_rel > PAR_LOSS_RTOL or grad_rel > DIS_GRAD_RTOL or x1_rel_held > PAR_X1_RTOL:
+        raise AssertionError(f"sharded distill step: loss rel {loss_rel} (limit "
+                             f"{PAR_LOSS_RTOL}), gradient {grad_rel} of its max (limit "
+                             f"{DIS_GRAD_RTOL}), x1 {x1_rel_held} of its max where |g| > "
+                             f"{PAR_X1_G_FLOOR} (limit {PAR_X1_RTOL}); {n_over} pixels over "
+                             f"the limit, the largest |g| among them {g_over}")
+    print(f"distill MobileNetV2 {SIZE}x{SIZE} b{DIS_BATCH} f32, {DIS_SHARDS} shards vs one: "
+          f"loss rel {loss_rel:.2e}, the steps' own gradients {grad_rel:.2e} of their max "
+          f"({float(g_abs.max()):.3e}), x1 {x1_rel_held:.2e} of its max where |g| > "
+          f"{PAR_X1_G_FLOOR:.0e} (limit {PAR_X1_RTOL}; "
+          f"{n_low} of {dx1.numel()} pixels at or below it), {x1_rel:.2e} at all; "
+          f"{n_over} pixels over the limit, the largest |g| among them {g_over}; ms a step "
+          f"{ms_single:.3f} single, {ms_sharded:.3f} sharded", flush=True)
+    del x0_t, x1_single, x1_sharded
+
+    # 5. tensor parallel: the baseline engine, weights split on the output channel
+    x8 = x[:BATCH]
+    tp = make_tp_int8_forward(model, residual, tp_mesh(*TP_MESH, devices=[card] * 4))
+    with torch.no_grad():
+        ck.reset_counts()
+        tp_out = tp(x8).gather()
+        torch.cuda.synchronize()
+        tp_launches = dict(ck.LAUNCHES)
+        base = Int8Net(model, residual, device=DEVICE)(x8)
+    tp_err = float((tp_out - base).abs().max())
+    peak = float(base.abs().max())
+    if tp_err > TOL * peak or not torch.equal(tp_out.argmax(-1), base.argmax(-1)):
+        raise AssertionError(f"tensor parallel vs Int8Net: max abs {tp_err} of max {peak}")
+    launches_by_path[f"mobilenet_v2_tp_{TP_MESH[0]}x{TP_MESH[1]}"] = tp_launches
+    tp_ms = forward_ms(tp, x8)
+    detail["tensor_parallel"] = {"mesh": TP_MESH, "max_abs": tp_err, "max_logit": peak,
+                                 "launches": tp_launches, "forward_ms": tp_ms}
+    print(f"tensor parallel {TP_MESH[0]}x{TP_MESH[1]} b{BATCH}: max abs vs Int8Net {tp_err} "
+          f"(limit {TOL} of {peak:.4f}), argmax equal, kernel launches {tp_launches}; forward "
+          f"{tp_ms:.3f} ms", flush=True)
+
+    # 6. a one-process NCCL group: the reductions equal the local values
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=DEVICE)
+    try:
+        if dist.get_backend() != ("nccl" if DEVICE == "cuda" else "gloo") or \
+                multihost.process_count() != 1:
+            raise AssertionError(f"process group {dist.get_backend()}, "
+                                 f"{multihost.process_count()} processes")
+        mesh1 = multihost.global_mesh()
+        local = rng.standard_normal((8, 3)).astype(np.float32)
+        arr = multihost.make_global_batch(mesh1, local)
+        got_sum = float(arr.sum())
+        want_sum = float(torch.from_numpy(local).to(DEVICE).sum())
+        lg = multihost.make_global_batch(mesh1, single[:BATCH].cpu().numpy())
+        lb = multihost.make_global_batch(mesh1, labels[:BATCH])
+        got_counts = count_correct(lg, lb).tolist()
+    finally:
+        dist.destroy_process_group()
+    want_local = [int((pred[:BATCH] == labels[:BATCH]).sum()), BATCH]
+    if got_sum != want_sum or got_counts != want_local or arr.shape != (8, 3):
+        raise AssertionError(f"NCCL world 1: sum {got_sum} vs {want_sum}, counters "
+                             f"{got_counts} vs {want_local}, shape {arr.shape}")
+    detail["nccl_world_1"] = {"sum": got_sum, "counts": got_counts}
+    print(f"NCCL group of one: all_reduce sum {got_sum} and counters {got_counts} equal the "
+          f"local ones", flush=True)
+
+    # 7. multibox_loss on the card against the CPU at SSD-Lite's priors
+    sc = SSDConfig()
+    match = MatchPrior(sc.priors, sc.center_variance, sc.size_variance, sc.iou_threshold)
+    locs, labs = [], []
+    for _ in range(MULTIBOX_BATCH):
+        lo = rng.uniform(0.0, 0.6, (3, 2))
+        boxes = np.concatenate([lo, lo + rng.uniform(0.1, 0.4, (3, 2))], 1).astype(np.float32)
+        loc, lab = match(np.clip(boxes, 0.0, 1.0), rng.integers(1, 21, 3))
+        locs.append(loc)
+        labs.append(lab)
+    inputs = (rng.standard_normal((MULTIBOX_BATCH, 3000, 21)).astype(np.float32),
+              rng.standard_normal((MULTIBOX_BATCH, 3000, 4)).astype(np.float32),
+              np.stack(labs).astype(np.int64), np.stack(locs))
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        t = [torch.from_numpy(a).to(dev) for a in inputs]
+        mask = hard_negative_mining(-torch.log_softmax(t[0], 2)[..., 0], t[2], 3)
+        res[dev] = ([float(v) for v in multibox_loss(*t)], mask.cpu().numpy())
+    (l_card, m_card), (l_cpu, m_cpu) = res[DEVICE], res["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    if not np.array_equal(m_card, m_cpu) or rel > MULTIBOX_RTOL:
+        raise AssertionError(f"multibox_loss card vs CPU: {l_card} vs {l_cpu} (rel {rel}), "
+                             f"masks differ at {int((m_card != m_cpu).sum())}")
+    detail["multibox"] = {"card": l_card, "cpu": l_cpu, "rel": rel,
+                          "mask_kept": int(m_card.sum())}
+    print(f"multibox_loss b{MULTIBOX_BATCH} x 3000 priors x 21: card {l_card} vs CPU {l_cpu} "
+          f"(rel {rel:.2e}), masks equal ({int(m_card.sum())} kept)", flush=True)
+    return {"detail": detail, "launches": launches_by_path}
+
+
 def main() -> int:
     import torch
 
@@ -1883,6 +2264,11 @@ def main() -> int:
     zoo = phase_zoo(ck, wrappers, max_err, gen, peaks)
     detail["zoo"] = zoo["models"]
     detail["sites_zoo"] = zoo["sites"]
+
+    # 18. parallel/ (its launch counts are read around each sharded run)
+    par = phase_parallel(ck, wrappers, max_err, gen,
+                         {"prep": prep, "model": model, "residual": residual, "net": net}, seg)
+    detail["parallel"] = par["detail"]
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -1909,7 +2295,8 @@ def main() -> int:
                                  "deeplab_mnv2": seg["launches"][k],
                                  "mobilenet_v2_calibrated": calib["launches"][k],
                                  "mobilenet_v2_aot": aot_run["launches"][k],
-                                 **{m: r["launches"][k] for m, r in zoo["models"].items()}},
+                                 **{m: r["launches"][k] for m, r in zoo["models"].items()},
+                                 **{p: n[k] for p, n in par["launches"].items()}},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

@@ -85,13 +85,17 @@ def bn_statistics_loss(graph: Graph, params, targets, *, clamp=None, dtype=torch
                        device=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """``x -> loss``: the BN-statistics loss of the network run on ``x``
     (clamped to ``clamp`` first, if given, and cast to ``dtype``) plus the
-    input-statistics loss of ``x`` itself, in f32."""
+    input-statistics loss of ``x`` itself, in f32. The BN terms sum
+    per-sample statistics; the input term divides by the batch size, which
+    ``loss_fn(x, batch_size=B)`` sets to a whole batch's when ``x`` is one
+    shard of it (``parallel/calib.py``): the shards' losses then add up to
+    the whole batch's."""
     dev = resolve_device(device)
     params_c = params_to(params, dev, dtype)
     tgt = {k: (torch.as_tensor(m, device=dev), torch.as_tensor(s, device=dev))
            for k, (m, s) in targets.items()}
 
-    def loss_fn(x: torch.Tensor) -> torch.Tensor:
+    def loss_fn(x: torch.Tensor, batch_size: Optional[int] = None) -> torch.Tensor:
         xc = x if clamp is None else torch.clamp(x, clamp[0], clamp[1])
         # the statistics are computed in f32 either way (the executor casts)
         _, aux = execute(graph, params_c, xc.to(dtype), capture="bn_inputs", device=dev)
@@ -106,7 +110,7 @@ def bn_statistics_loss(graph: Graph, params, targets, *, clamp=None, dtype=torch
         n_el = flat.shape[1]
         mu_x = flat.mean(dim=1)
         sd_x = torch.sqrt(flat.var(dim=1, correction=0) * (n_el / (n_el - 1)))
-        b = x.shape[0]
+        b = x.shape[0] if batch_size is None else batch_size
         return loss + torch.sum(mu_x**2) / b + torch.sum((sd_x - 1.0) ** 2) / b
 
     return loss_fn
@@ -133,29 +137,39 @@ def loss_and_grad(loss_fn, x: torch.Tensor):
 
 @dataclasses.dataclass
 class AdamState:
-    """optax ``adam`` state with its injected learning rate (f32)."""
+    """optax ``adam`` state with its learning rate (f32). ``injected``:
+    the state of ``inject_hyperparams(adam)``, whose hyperparameters are
+    f32 numbers; else of plain ``adam(lr)``, whose ``b1``, ``b2`` stay
+    Python floats (``parallel/calib.py``, as the JAX package's sharded
+    step)."""
 
     mu: torch.Tensor
     nu: torch.Tensor
     count: int
     lr: float
+    injected: bool = True
 
     @classmethod
-    def init(cls, x: torch.Tensor, lr: float) -> "AdamState":
-        return cls(torch.zeros_like(x), torch.zeros_like(x), 0, float(np.float32(lr)))
+    def init(cls, x: torch.Tensor, lr: float, injected: bool = True) -> "AdamState":
+        return cls(torch.zeros_like(x), torch.zeros_like(x), 0, float(np.float32(lr)),
+                   injected)
 
 
 def adam_step(x: torch.Tensor, grad: torch.Tensor, st: AdamState, b1: float = 0.9,
               b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
-    """One step of optax's ``inject_hyperparams(adam)`` (``eps_root`` 0) in
-    its float form: the hyperparameters are f32 numbers (so ``1 - b1`` is
-    computed in f32), ``mu <- (1-b1) g + b1 mu``, ``nu <- (1-b2) g^2 + b2
-    nu``, and ``x - lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) +
-    eps)``; the moments are updated in place. Returns the new ``x``."""
+    """One step of optax's ``adam`` (``eps_root`` 0) in its float form:
+    ``mu <- (1-b1) g + b1 mu``, ``nu <- (1-b2) g^2 + b2 nu``, and ``x - lr *
+    (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)``; the moments are
+    updated in place. Returns the new ``x``. ``1 - b1`` is computed in f32
+    for the injected state's f32 hyperparameters, and in Python's float64,
+    then rounded to f32, for plain ``adam``'s."""
+    one_minus = ((lambda b: float(np.float32(1) - np.float32(b))) if st.injected
+                 else (lambda b: float(np.float32(1.0 - b))))
+    c1, c2 = one_minus(b1), one_minus(b2)
     b1, b2 = np.float32(b1), np.float32(b2)
     st.count += 1
-    st.mu.mul_(float(b1)).add_(grad * float(np.float32(1) - b1))
-    st.nu.mul_(float(b2)).add_(grad * grad * float(np.float32(1) - b2))
+    st.mu.mul_(float(b1)).add_(grad * c1)
+    st.nu.mul_(float(b2)).add_(grad * grad * c2)
     t = torch.tensor(float(st.count), dtype=torch.float32)
     bc1 = float(1.0 - torch.tensor(float(b1), dtype=torch.float32) ** t)
     bc2 = float(1.0 - torch.tensor(float(b2), dtype=torch.float32) ** t)

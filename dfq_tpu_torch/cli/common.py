@@ -1,18 +1,12 @@
-"""What the port's entry points share: the reference's DFQ flags, the
-flags whose modules are not ported yet, and the forward of the chosen
-engine (``sim``: the f32 fake-quant simulator; ``int8``: the baseline
-int8 engine ``Int8Net``; ``fused``: ``Int8FusedNet`` on the hand-written
-kernels), with the int8 artifact saved on request."""
+"""What the port's entry points share: the reference's DFQ flags and the
+forward of the chosen engine (``sim``: the f32 fake-quant simulator;
+``int8``: the baseline int8 engine ``Int8Net``; ``fused``:
+``Int8FusedNet`` on the hand-written kernels), with the int8 artifact
+saved on request."""
 
 from __future__ import annotations
 
 import argparse
-
-# flags of the JAX entry points that the port does not run yet, and the
-# ROADMAP.md item (section 1) that ports what they need
-UNPORTED = {
-    "--stream": "streaming eval (parallel/stream): ROADMAP.md section 1, 'Parallel'",
-}
 
 
 def add_dfq_flags(p: argparse.ArgumentParser) -> None:
@@ -33,14 +27,6 @@ def add_dfq_flags(p: argparse.ArgumentParser) -> None:
                    help="write the lowered int8 model as an artifact directory")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch state_dict (.pth) to load")
-
-
-def refuse_unported(args, flags) -> None:
-    """Exit non-zero, naming the ROADMAP item, for a flag of ``flags`` that
-    is set."""
-    for flag in flags:
-        if getattr(args, flag.lstrip("-").replace("-", "_")):
-            raise SystemExit(f"{flag}: {UNPORTED[flag]} is not ported yet")
 
 
 def distill_config(args, device, **overrides):

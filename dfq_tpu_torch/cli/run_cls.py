@@ -21,10 +21,12 @@ It runs on CUDA unless ``--device cpu`` is given. ``--engine sim`` is the
 f32 fake-quant simulator (``dfq_tpu_torch.graph.execute``), ``int8`` the
 baseline int8 engine (``Int8Net``), ``fused`` the fused engine on the
 hand-written kernels (``Int8FusedNet``). Without ``--data-dir`` it runs
-8 seeded 224x224 images and prints the logits' shape. ``--aot-batch B``
-(with ``--engine fused --save-artifact DIR``, on the card) ships the
-kernel libraries the forward ran in ``DIR/aot/``; reload with
-``dfq_tpu_torch.io.aot.load_aot_forward(DIR)``, which needs no ``nvcc``.
+8 seeded 224x224 images and prints the logits' shape; with it,
+``--stream`` keeps two batches in flight (``dfq_tpu_torch.parallel.stream``).
+``--aot-batch B`` (with ``--engine fused --save-artifact DIR``, on the
+card) ships the kernel libraries the forward ran in ``DIR/aot/``; reload
+with ``dfq_tpu_torch.io.aot.load_aot_forward(DIR)``, which needs no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ from dfq_tpu_torch.cli.common import (
     distill_config,
     engine_forward,
     load_checkpoint,
-    refuse_unported,
 )
 
 
@@ -84,9 +85,6 @@ def main(argv=None) -> dict:
     smoke images or ``acc``, the ``forward`` module, and for the int8
     engines the lowered ``model`` and its residual f32 ``params``)."""
     args = get_argument(argv)
-    # streaming changes only how --data-dir's batches are fed (JAX ignores
-    # the flag without it)
-    refuse_unported(args, ("--stream",) if args.data_dir else ())
     if args.aot_batch and not (args.quantize and args.engine == "fused" and args.save_artifact):
         raise SystemExit("--aot-batch ships the fused engine's kernels in the artifact: it "
                          "needs --quantize --engine fused --save-artifact DIR")
@@ -141,13 +139,26 @@ def main(argv=None) -> dict:
         if args.data_dir:
             from dfq_tpu_torch.data import imagenet_batches
 
-            correct = total = 0
-            for imgs, labels in imagenet_batches(args.data_dir, args.batch_size,
-                                                 limit=args.limit):
-                logits = fwd(torch.from_numpy(imgs).to(device)).cpu().numpy()
-                correct += int((logits.argmax(-1) == labels).sum())
-                total += len(labels)
+            batches = imagenet_batches(args.data_dir, args.batch_size, limit=args.limit)
+            if args.stream:
+                # keep batches in flight: host decode and the copy to the
+                # device overlap the device's forward (parallel/stream.py)
+                from dfq_tpu_torch.parallel.mesh import to_device
+                from dfq_tpu_torch.parallel.stream import stream_counters
+
+                def step(imgs, labels):
+                    logits = fwd(to_device(imgs, device))
+                    return (logits.argmax(-1) == to_device(labels, device)).sum()
+
+                correct, total = stream_counters(step, batches)
+            else:
+                correct = total = 0
+                for imgs, labels in batches:
+                    logits = fwd(torch.from_numpy(imgs).to(device)).cpu().numpy()
+                    correct += int((logits.argmax(-1) == labels).sum())
+                    total += len(labels)
             acc = correct / max(total, 1)
+            out["counts"] = (correct, total)
             print(f"Acc: {acc}")
         else:
             x = np.random.default_rng(0).normal(0, 1, (8, 224, 224, 3)).astype(np.float32)

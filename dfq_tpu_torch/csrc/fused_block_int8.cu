@@ -761,22 +761,26 @@ cudaError_t for_each_instance(F f) {
 
 extern "C" int dfq_fused_block_int8(const FusedBlockArgs* args, void* stream) {
   const FusedBlockArgs& a = *args;
-  // once per process: let every kernel take up to the device's opt-in
-  // maximum of dynamic shared memory; each launch asks for a.smem of it
-  static std::once_flag once;
-  static cudaError_t set_err = cudaSuccess;
-  std::call_once(once, [] {
-    int dev = 0, optin = 0;
-    set_err = cudaGetDevice(&dev);
-    if (set_err == cudaSuccess)
-      set_err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // once per device (a function attribute is the current device's): let
+  // every kernel take up to the device's opt-in maximum of dynamic shared
+  // memory; each launch asks for a.smem of it
+  static std::once_flag once[dfq::MAX_DEVICES];
+  static cudaError_t set_err[dfq::MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= dfq::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    int optin = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     auto set = [&](auto kernel) {
       return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     };
-    if (set_err == cudaSuccess) set_err = set(fused_block_kernel);
-    if (set_err == cudaSuccess) set_err = for_each_instance(set);
+    if (e == cudaSuccess) e = set(fused_block_kernel);
+    if (e == cudaSuccess) e = for_each_instance(set);
+    set_err[dev] = e;
   });
-  if (set_err != cudaSuccess) return (int)set_err;
+  if (set_err[dev] != cudaSuccess) return (int)set_err[dev];
   auto s = static_cast<cudaStream_t>(stream);
   const int n_h = (a.H + a.bh - 1) / a.bh;
   if (!a.mma) {

@@ -12,6 +12,10 @@
 
 namespace dfq {
 
+// the devices a process may launch on: per-device state of the entry points
+// (the opt-in shared-memory attribute) is kept in arrays of this length
+constexpr int MAX_DEVICES = 64;
+
 // f32(acc) * scale + bias: XLA:CPU contracts the multiply-add into one
 // FMA. The int32 -> f32 conversion rounds to nearest even, as XLA's
 // convert does.

@@ -440,23 +440,27 @@ extern "C" int dfq_matmul_int8_requant(const MatmulArgs* args, void* stream) {
   const MatmulArgs& a = *args;
   auto s = static_cast<cudaStream_t>(stream);
   if (a.mma) {
-    // once per process: let both instances take up to the device's opt-in
-    // maximum of dynamic shared memory; each launch asks for a.smem of it
-    static std::once_flag once;
-    static cudaError_t set_err = cudaSuccess;
-    std::call_once(once, [] {
-      int dev = 0, optin = 0;
-      set_err = cudaGetDevice(&dev);
-      if (set_err == cudaSuccess)
-        set_err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (set_err == cudaSuccess)
-        set_err = cudaFuncSetAttribute(mm_mma_kernel<false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-      if (set_err == cudaSuccess)
-        set_err = cudaFuncSetAttribute(mm_mma_kernel<true>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    // once per device (a function attribute is the current device's): let
+    // both instances take up to the device's opt-in maximum of dynamic
+    // shared memory; each launch asks for a.smem of it
+    static std::once_flag once[dfq::MAX_DEVICES];
+    static cudaError_t set_err[dfq::MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= dfq::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    std::call_once(once[dev], [dev] {
+      int optin = 0;
+      cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(mm_mma_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(mm_mma_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      set_err[dev] = e;
     });
-    if (set_err != cudaSuccess) return (int)set_err;
+    if (set_err[dev] != cudaSuccess) return (int)set_err[dev];
     if (a.K % 8 || a.N % 8 || a.bn % 8 || a.bn < 8 || a.stages < 1 || a.stages > 8 ||
         a.pitch % 64 != 32 || a.pitch < a.K || a.off_x != a.bn * a.pitch || a.grid_x < 1 ||
         a.grid_y != (a.N + a.bn - 1) / a.bn)

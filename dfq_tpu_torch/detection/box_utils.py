@@ -3,9 +3,10 @@
 
 Behavioral contract: reference ``utils/detection/box_utils.py`` — prior
 generation (``:12-80``), location<->box conversion with center/size
-variances (``:83-116``), IoU (``:119-149``), hard/soft NMS
-(``:219-292``). Vectorized numpy; the two conversions also take torch
-tensors. Hard NMS orders candidates by descending score and, on equal
+variances (``:83-116``), IoU (``:119-149``), target assignment
+(``:152-179``), hard/soft NMS (``:219-292``). Vectorized numpy;
+``convert_locations_to_boxes`` and ``center_form_to_corner_form`` also
+take torch tensors. Hard NMS orders candidates by descending score and, on equal
 scores, by ascending index (a stable sort), as
 ``dfq_tpu_torch.detection.device_nms`` does, so the two paths keep the
 same boxes when int8 confidences tie.
@@ -82,6 +83,20 @@ def convert_locations_to_boxes(locations, priors, center_variance, size_variance
     ])
 
 
+def convert_boxes_to_locations(boxes, priors, center_variance, size_variance):
+    """Center-form boxes -> regression targets (``box_utils.py:109-116``),
+    host numpy."""
+    if priors.ndim + 1 == boxes.ndim:
+        priors = priors[None, ...]
+    return np.concatenate(
+        [
+            (boxes[..., :2] - priors[..., :2]) / priors[..., 2:] / center_variance,
+            np.log(boxes[..., 2:] / priors[..., 2:]) / size_variance,
+        ],
+        axis=-1,
+    )
+
+
 def center_form_to_corner_form(locations):
     return _cat([
         locations[..., :2] - locations[..., 2:] / 2,
@@ -154,3 +169,21 @@ def nms(box_scores, nms_method=None, score_threshold=None, iou_threshold=None,
     if nms_method == "soft":
         return soft_nms(box_scores, score_threshold, sigma, top_k)
     return hard_nms(box_scores, iou_threshold, top_k, candidate_size)
+
+
+def assign_priors(gt_boxes, gt_labels, corner_form_priors, iou_threshold):
+    """Target assignment, host numpy (training-time helper;
+    ``box_utils.py:152-179``): each prior takes its best ground truth, each
+    ground truth its best prior (whatever the IoU), and priors below
+    ``iou_threshold`` the background label 0."""
+    ious = iou_of(gt_boxes[None, :, :], corner_form_priors[:, None, :])
+    best_target_per_prior = ious.max(axis=1)
+    best_target_per_prior_index = ious.argmax(axis=1)
+    best_prior_per_target_index = ious.argmax(axis=0)
+    for target_index, prior_index in enumerate(best_prior_per_target_index):
+        best_target_per_prior_index[prior_index] = target_index
+    best_target_per_prior[best_prior_per_target_index] = 2.0
+    labels = gt_labels[best_target_per_prior_index].copy()
+    labels[best_target_per_prior < iou_threshold] = 0
+    boxes = gt_boxes[best_target_per_prior_index]
+    return boxes, labels

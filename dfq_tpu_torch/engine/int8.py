@@ -33,7 +33,7 @@ Grouped convs, and dense convs whose ``Cin`` is not a multiple of 8 (the
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -276,6 +276,63 @@ def int8_linear(xq: torch.Tensor, prod: Int8Product) -> torch.Tensor:
     return acc.reshape(lead + (prod.n_out,))
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@dataclasses.dataclass
+class _Piece:
+    """Output channels ``[c0, c0 + n)`` of a lowered layer on ``device``:
+    the packed exact product, ``wsum``, the combined scale ``in_scale *
+    w_scale`` (numpy f32, as the JAX engine's host product) and the bias.
+    A grouped conv's piece reads the input channels of the groups it
+    spans (``cin``) and drops the rows it pads to whole groups (``keep``)."""
+
+    node: Any
+    prod: Int8Product
+    wsum: torch.Tensor
+    comb: torch.Tensor
+    bias: Optional[torch.Tensor]
+    cin: Optional[slice] = None
+    keep: Optional[slice] = None
+
+    @classmethod
+    def build(cls, node, qweight, wsum, w_scale, bias, in_scale, device, c0: int = 0):
+        dev = torch.device(device)
+        n, cin, keep = qweight.shape[0], None, None
+        groups = node.attrs.get("groups", 1) if node.op == "conv" else 1
+        if groups > 1 and n != node.attrs["out_ch"]:
+            opg = node.attrs["out_ch"] // groups
+            g0, g1 = c0 // opg, -(-(c0 + n) // opg)
+            front, back = c0 - g0 * opg, g1 * opg - (c0 + n)
+            qweight = np.pad(qweight, ((front, back), (0, 0), (0, 0), (0, 0)))
+            cin_g = qweight.shape[1]
+            cin, keep = slice(g0 * cin_g, g1 * cin_g), slice(front, front + n)
+            node = node.replace(attrs={**node.attrs, "groups": g1 - g0,
+                                       "in_ch": (g1 - g0) * cin_g, "out_ch": qweight.shape[0]})
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dtype).contiguous()
+
+        return cls(node, pack_int8_product(qweight, node, dev), t(wsum, torch.int32),
+                   t(np.asarray(in_scale * np.asarray(w_scale, np.float32), np.float32),
+                     torch.float32),
+                   None if bias is None else t(bias, torch.float32), cin, keep)
+
+    def __call__(self, xq: torch.Tensor, zp: int) -> torch.Tensor:
+        dev = self.wsum.device
+        x = xq if self.cin is None else xq[..., self.cin]
+        x = x.to(dev)
+        if self.node.op == "conv":
+            acc = int8_conv(x, self.node, self.prod, zp)
+        else:
+            acc = int8_linear(x, self.prod)
+        if self.keep is not None:
+            acc = acc[..., self.keep]
+        a = (acc - zp * self.wsum).to(torch.float32)
+        return a * self.comb if self.bias is None else fma_f32(a, self.comb, self.bias)
+
+
 # ops whose inputs the baseline engine fake-quantizes at their sites
 _SITE_OPS = {"conv", "linear", "add", "concat", "global_mean", "interpolate",
              "softmax", "l2norm"}
@@ -293,18 +350,33 @@ class Int8Net(nn.Module):
     w_scale) + bias`` is one FMA; a spatial mean is a sequential f32 sum,
     whose ``1/n`` folds into the quantize of a lowered consumer; site
     fake-quants are :func:`~dfq_tpu_torch.quant.core.fake_quant`.
+
+    ``weights`` overrides the lowered int8 constants, as the JAX engine's
+    ``weights=`` (its tensor-parallel entry): ``{name: {"qweight", "wsum",
+    "scale", "bias"}}`` in its layouts (conv ``qweight`` HWIO, linear
+    ``[in, out]``, so the last dim is the output channel). A value may be
+    a list: the layer's output channels in consecutive shards, each on the
+    device that computes it (``parallel/tp.py``). Each shard computes its
+    channels from the whole input (a grouped conv: from the input channels
+    its groups read), its epilogue runs on its device, and the shards are
+    concatenated on this module's device before the next node: per
+    channel the same operations as the unsharded layer, so the outputs are
+    bit-equal.
     """
 
-    def __init__(self, model: Int8Model, params_f32: Dict[str, Dict], device=None):
+    def __init__(self, model: Int8Model, params_f32: Dict[str, Dict], device=None,
+                 weights: Optional[Dict[str, Dict[str, Any]]] = None):
         super().__init__()
         self.device = resolve_device(device)
         self.model = model
+        self.weights = weights or {}
         self.params = params_to(params_f32, self.device)
         graph = model.graph
         self.input_name = graph.input_names()[0]
         self.outputs = graph.outputs
         self._qmax = 2.0**model.bits_act - 1.0
-        # the packed exact int8 product of every lowered layer
+        # the packed exact int8 product of every lowered layer (but those a
+        # weights override splits into shards)
         self.products: Dict[str, Int8Product] = {}
         # global_mean nodes whose one consumer is a lowered layer: they hand
         # it the spatial sum, and it folds 1/n into its quantize
@@ -316,9 +388,6 @@ class Int8Net(nn.Module):
             and graph[graph.consumers(n.name)[0]].inputs[0] == n.name
         }
         self._steps = [(n.name, self._build(n)) for n in graph if n.op != "input"]
-
-    def _t(self, a, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype).contiguous()
 
     def _site_fq(self, node, i, val):
         key = f"{node.name}:in{i}"
@@ -369,17 +438,45 @@ class Int8Net(nn.Module):
 
         return mean
 
+    def _pieces(self, node, layer: Int8Layer) -> List["_Piece"]:
+        """The layer's product and epilogue in output-channel pieces: one
+        on this module's device, or one per shard of a ``weights``
+        override."""
+        ov = self.weights.get(node.name)
+        if ov is None:
+            return [_Piece.build(node, layer.qweight, layer.wsum, layer.w_scale, layer.bias,
+                                 layer.in_scale, self.device)]
+        sharded = isinstance(ov["qweight"], (list, tuple))
+        shards = [{k: (v[i] if sharded and v is not None else v) for k, v in ov.items()}
+                  for i in range(len(ov["qweight"]) if sharded else 1)]
+        pieces, c0 = [], 0
+        for sh in shards:
+            qw = _host(sh["qweight"])
+            # HWIO -> OIHW; [in, out] -> [out, in]
+            qw = qw.transpose(3, 2, 0, 1) if qw.ndim == 4 else qw.T
+            if qw.shape[0] == 0:  # a shard of no channels computes nothing
+                continue
+            dev = (sh["qweight"].device if isinstance(sh["qweight"], torch.Tensor)
+                   else self.device)
+            bias = None if sh.get("bias") is None else _host(sh["bias"])
+            pieces.append(_Piece.build(node, qw, _host(sh["wsum"]), _host(sh["scale"]), bias,
+                                       layer.in_scale, dev, c0))
+            c0 += qw.shape[0]
+        if c0 != layer.qweight.shape[0]:
+            raise ValueError(f"{node.name}: the weights override has {c0} output channels, "
+                             f"the layer {layer.qweight.shape[0]}")
+        return pieces
+
     def _build_layer(self, node):
         layer = self.model.layers[node.name]
-        prod = self.products[node.name] = pack_int8_product(layer.qweight, node, self.device)
-        wsum = self._t(layer.wsum, torch.int32)
-        # in_scale * w_scale in numpy f32, as the JAX engine's host product
-        comb = self._t(np.asarray(layer.in_scale * layer.w_scale, np.float32), torch.float32)
-        bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
+        pieces = self._pieces(node, layer)
+        if len(pieces) == 1:
+            self.products[node.name] = pieces[0].prod
         zp, qmax = layer.in_zp, self._qmax
         r = recip_xla(layer.in_scale)
         src = node.inputs[0]
         folded = src in self._sum_only
+        home = self.device
 
         def lowered(env):
             x = env[src]
@@ -388,12 +485,8 @@ class Int8Net(nn.Module):
                 xq = quant_u8(acc_sum, mean_quant_recip(n, layer.in_scale), zp, 0.0, qmax)
             else:
                 xq = quant_u8(x, r, zp, 0.0, qmax)
-            if node.op == "conv":
-                acc = int8_conv(xq, node, prod, zp)
-            else:
-                acc = int8_linear(xq, prod)
-            a = (acc - zp * wsum).to(torch.float32)
-            env[node.name] = a * comb if bias is None else fma_f32(a, comb, bias)
+            outs = [pc(xq, zp).to(home) for pc in pieces]
+            env[node.name] = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
         return lowered
 
@@ -441,10 +534,10 @@ def _spatial_sum(x: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor
     return acc
 
 
-def execute_int8(model: Int8Model, params_f32, x: torch.Tensor, device=None):
+def execute_int8(model: Int8Model, params_f32, x: torch.Tensor, device=None, weights=None):
     """The JAX package's ``execute_int8`` by name: builds an
-    :class:`Int8Net` and runs ``x`` through it. Build the module once to
-    run many batches. (The ``weights=`` override, the JAX engine's
-    tensor-parallel entry, is not ported.)"""
+    :class:`Int8Net` (with the ``weights`` override, the tensor-parallel
+    entry) and runs ``x`` through it. Build the module once to run many
+    batches."""
     with torch.no_grad():
-        return Int8Net(model, params_f32, device=device)(x)
+        return Int8Net(model, params_f32, device=device, weights=weights)(x)

@@ -148,8 +148,16 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``, the input tensor's (not of the
+    current device: a shard on ``cuda:1`` launches on ``cuda:1``)."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch_on(device: torch.device):
+    """The context a launch runs in: ``device`` current, since the ctypes
+    call launches on the calling thread's current device."""
+    return torch.cuda.device(device)
 
 
 def _on(t, device, dtype) -> torch.Tensor:
@@ -354,7 +362,8 @@ def matmul_int8_requant_packed(x: torch.Tensor, op: MatmulRequant) -> torch.Tens
     # a copy per call: serving threads may launch the same site at once
     a = _MatmulArgs.from_buffer_copy(_matmul_args(op, M, _aligned16(x)))
     a.x, a.out = x.data_ptr(), out.data_ptr()
-    err = _fn("dfq_matmul_int8_requant")(ctypes.byref(a), _stream())
+    with _launch_on(x.device):
+        err = _fn("dfq_matmul_int8_requant")(ctypes.byref(a), _stream(x.device))
     _raise_on(err, name)
     _count_launch(name, "mma" if a.mma else "dp4a")
     return out
@@ -511,11 +520,12 @@ def dw3x3_int8_requant_packed(x: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor
     plan = dw3x3_plan(N, H, W, C,
                       _aligned16(x, out, op.taps, op.scale, op.bias, op.zp_tapsum),
                       _sm_count(x.device))
-    err = _fn("dfq_dw3x3_int8_requant")(
-        x.data_ptr(), op.taps.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
-        op.zp_tapsum.data_ptr(), out.data_ptr(), N, H, W, C, op.zp_in, op.inv_out,
-        float(op.zp_out), op.lo, op.hi, int(op.out_f32), int(plan.variant == "strip"),
-        DW_STRIP, plan.rows, plan.grid[0], plan.grid[1], _stream())
+    with _launch_on(x.device):
+        err = _fn("dfq_dw3x3_int8_requant")(
+            x.data_ptr(), op.taps.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+            op.zp_tapsum.data_ptr(), out.data_ptr(), N, H, W, C, op.zp_in, op.inv_out,
+            float(op.zp_out), op.lo, op.hi, int(op.out_f32), int(plan.variant == "strip"),
+            DW_STRIP, plan.rows, plan.grid[0], plan.grid[1], _stream(x.device))
     _raise_on(err, name)
     _count_launch(name, plan.variant)
     return out
@@ -1113,7 +1123,8 @@ def fused_block_int8_packed(x: torch.Tensor, op: FusedBlock) -> torch.Tensor:
     # a copy per call: serving threads may launch the same block at once
     a = _FusedBlockArgs.from_buffer_copy(_fused_block_args(op, N, H, W, _aligned16(x, out)))
     a.x, a.out = x.data_ptr(), out.data_ptr()
-    err = _fn("dfq_fused_block_int8")(ctypes.byref(a), _stream())
+    with _launch_on(x.device):
+        err = _fn("dfq_fused_block_int8")(ctypes.byref(a), _stream(x.device))
     _raise_on(err, name)
     _count_launch(name, "mma" if a.mma else "general")
     return out

@@ -2,9 +2,9 @@
 the CPU: each engine on the 8 seeded 224x224 smoke images, the artifact it
 saves reproducing its network bit for bit, ``--aot-batch`` writing its
 payload into the artifact (the card's steps replaced as in
-``tests/test_torch_aot.py``) and refusing the CPU, and the flags whose
-modules are not ported yet refused with the ROADMAP item that ports them
-(``--stream`` only where it would stream, with ``--data-dir``)."""
+``tests/test_torch_aot.py``) and refusing the CPU, and ``--stream`` on a
+synthetic ImageNet folder giving the synchronous loop's accuracy and the
+JAX entry point's (``tests/test_data_and_cli.py:231``)."""
 
 import numpy as np
 import pytest
@@ -82,12 +82,67 @@ def test_aot_batch_refusals_name_the_flag(flags, match):
         run_cls.main(DFQ + flags + ["--aot-batch", "8"])
 
 
-@pytest.mark.parametrize("flag", [["--stream", "--data-dir", "imagenet/val"]])
-def test_unported_flags_exit_nonzero(flag):
-    with pytest.raises(SystemExit) as e:
-        run_cls.main(DFQ + flag)
-    assert e.value.code not in (0, None)
-    assert flag[0] in str(e.value.code) and "ROADMAP.md" in str(e.value.code)
+@pytest.fixture(scope="module")
+def imagenet_tree(tmp_path_factory):
+    """A copy of ``tests/test_data_and_cli.py``'s ``imagenet_tree``."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("imagenet_val")
+    rng = np.random.default_rng(0)
+    for cls in ("n01440764", "n01443537"):
+        d = root / cls
+        d.mkdir()
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (256, 300, 3), np.uint8)).save(
+                d / f"img_{i}.jpg")
+    return str(root)
+
+
+def test_run_cls_stream_matches_sync(imagenet_tree, monkeypatch, capsys):
+    """``--stream`` (batches kept in flight) counts the synchronous loop's
+    correct predictions and images, and reports the JAX entry point's
+    accuracy with the same flags on the same folder (ResNet-18, random
+    weights from the seed, fused engine: JAX compiles it in less than half
+    MobileNetV2's time). The folder's labels are replaced by the port's own
+    predictions at even images and another class at odd ones, so that
+    exactly half the images count as correct."""
+    import sys
+
+    import dfq_tpu.data
+    import dfq_tpu_torch.data
+    from dfq_tpu.cli import run_cls as j_run_cls
+
+    flags = ["--resnet", "--quantize", "--relu", "--equalize", "--bits_bias", "16",
+             "--engine", "fused", "--data-dir", imagenet_tree, "--batch-size", "2",
+             "--limit", "6"]
+    first = run_cls.main(flags + ["--device", "cpu"])
+    (imgs, _), = dfq_tpu_torch.data.imagenet_batches(imagenet_tree, 6)
+    with torch.no_grad():
+        pred = first["forward"](torch.from_numpy(imgs)).argmax(-1).numpy()
+    hit = np.where(np.arange(6) % 2 == 0, pred, (pred + 1) % 1000).astype(np.int32)
+
+    def relabelled(loader):
+        def batches(*args, **kwargs):
+            seen = 0
+            for x, y in loader(*args, **kwargs):
+                yield x, hit[seen:seen + len(y)]
+                seen += len(y)
+        return batches
+
+    monkeypatch.setattr(dfq_tpu_torch.data, "imagenet_batches",
+                        relabelled(dfq_tpu_torch.data.imagenet_batches))
+    monkeypatch.setattr(dfq_tpu.data, "imagenet_batches", relabelled(dfq_tpu.data.imagenet_batches))
+    capsys.readouterr()
+    counts = []
+    for extra in ([], ["--stream"]):
+        out = run_cls.main(flags + ["--device", "cpu"] + extra)
+        assert f"Acc: {out['acc']}" in capsys.readouterr().out
+        counts.append(out["counts"])
+    assert counts[0] == counts[1] == (3, 6)
+    monkeypatch.setattr(sys, "argv", ["run_cls"] + flags + ["--stream"])
+    j_run_cls.main()
+    j_acc = float(capsys.readouterr().out.split("Acc: ")[1].split()[0])
+    assert j_acc == 0.5
 
 
 def test_trainable_refuses_int8_engines():

@@ -194,6 +194,9 @@ def test_import_isolation():
         "import dfq_tpu_torch.models.alexnet, dfq_tpu_torch.models.xception\n"
         "import dfq_tpu_torch.models.drn, dfq_tpu_torch.models.ssd_variants\n"
         "import dfq_tpu_torch.data.open_images\n"
+        "import dfq_tpu_torch.parallel, dfq_tpu_torch.parallel.multihost\n"
+        "import dfq_tpu_torch.detection.losses, dfq_tpu_torch.detection.transforms\n"
+        "import dfq_tpu_torch.data.seg_transforms\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

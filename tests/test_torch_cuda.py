@@ -13,8 +13,10 @@ channel counts of its 7 main-path shape classes on small and ragged
 images, the wrappers' argument checks, the SSD-Lite and DeepLab shapes
 (K1's ``dp4a`` variant at the class heads and the segmentation
 classifier, K2 and K3 at the detection sites, the dilated ASPP, decoder
-and unpadded depthwise convs), and calibration's distillation loss and
-gradient and ``calibrate_ranges`` on the card against the CPU.
+and unpadded depthwise convs), calibration's distillation loss and
+gradient and ``calibrate_ranges`` on the card against the CPU, the
+sharded fused forward at 3 and 4 shards on one card, and each wrapper
+launching on its input's device and stream.
 """
 
 import numpy as np
@@ -577,3 +579,71 @@ def test_fused_block_mma_variant_at_the_mobilenet_v1_c2_1024_block(dev, N):
     got = ck.fused_block_int8_packed(x, op)
     assert ck.VARIANTS["fused_block_int8"] == {"mma": 1, "general": 0}
     _equal(got, ck.fused_block_int8_plain(x, op))
+
+
+# -- parallel/ on the card ------------------------------------------------------
+
+@pytest.mark.parametrize("n_shards", [3, 4])
+def test_sharded_fused_forward_on_one_card(dev, n_shards):
+    """MobileNetV2 96x96 b12 split over ``n_shards`` shards on the card:
+    logits bit-equal to the single forward, 11 / 1 / 12 launches a shard,
+    the counters equal."""
+    from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
+    from dfq_tpu_torch.models import init_params, mobilenet_v2
+    from dfq_tpu_torch.parallel import data_mesh, make_sharded_eval, make_sharded_forward
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    g = mobilenet_v2()
+    prep = prepare(g, init_params(g, seed=0, bn_stats="random"),
+                   QuantConfig(quantize=True, relu=True, equalize=True, bits_bias=16))
+    model = lower_int8(prep)
+    residual = {k: v for k, v in prep.params.items() if k not in model.layers}
+    rng = np.random.default_rng(n_shards)
+    x = _t(rng.normal(0, 1, (12, 96, 96, 3)).astype(np.float32), dev)
+    with torch.no_grad():
+        single = Int8FusedNet(model, device=dev, params_f32=residual)(x)
+    labels = single.argmax(-1).cpu().numpy()
+    labels[::3] = (labels[::3] + 1) % 1000
+    mesh = data_mesh(devices=[dev] * n_shards)
+    fwd = make_sharded_forward(None, residual, mesh, int8_model=model, engine="fused")
+    ck.reset_counts()
+    out = fwd(x)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"matmul_int8_requant": 11 * n_shards,
+                           "dw3x3_int8_requant": n_shards, "fused_block_int8": 12 * n_shards}
+    assert [s.shape[0] for s in out.shards] == [12 // n_shards] * n_shards
+    _equal(out.gather(), single)
+    run = make_sharded_eval(None, residual, mesh, int8_model=model, engine="fused")
+    assert run(x, labels) == (8, 12)
+
+
+def test_kernels_launch_on_the_inputs_device_and_stream(dev):
+    """Each wrapper launches on the current stream of its input's device:
+    on a side stream, inside a CUDA-graph capture (a launch on another
+    stream would break the capture), and on every visible card from
+    device 0's context."""
+    rng = np.random.default_rng(0)
+    for i in range(torch.cuda.device_count()):
+        d = torch.device("cuda", i)
+        w = rng.integers(-128, 128, (96, 64)).astype(np.int8)
+        op = ck.pack_matmul(w, np.full(96, 1e-3, np.float32), np.zeros(96, np.float32),
+                            w.astype(np.int32).sum(1), zp_in=-3, s_out=0.05, zp_out=1, device=d)
+        x = _t(rng.integers(-128, 128, (300, 64)).astype(np.int8), d)
+        want = ck.matmul_int8_requant_plain(x, op)
+        with torch.cuda.device(0):
+            _equal(ck.matmul_int8_requant_packed(x, op), want)
+        side = torch.cuda.Stream(d)
+        with torch.cuda.device(d), torch.cuda.stream(side):
+            assert ck._stream(d) == side.cuda_stream
+            got = ck.matmul_int8_requant_packed(x, op)
+        side.synchronize()
+        _equal(got, want)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(d):
+            ck.matmul_int8_requant_packed(x, op)  # warm-up outside the capture
+            torch.cuda.synchronize(d)
+            with torch.cuda.graph(graph):
+                out = ck.matmul_int8_requant_packed(x, op)
+            graph.replay()
+            torch.cuda.synchronize(d)
+        _equal(out, want)
