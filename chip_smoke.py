@@ -176,7 +176,27 @@ Phases, in order; any failure exits non-zero:
    classes, on the card against the CPU (equal masks, within
    ``MULTIBOX_RTOL``).
 
-Phases 12 and 13 run after 10 and before 11, and 14 to 18 after 11. It
+19. the fused engine's lowering policies (``Int8FusedNet``'s options, the
+   JAX engine's): ``stem_s2d``, dense-diagonal depthwise (32 channels, 160
+   rows), ``chpad_k3``, ``k3_matmul`` im2col and shift9 for every dense
+   3x3 conv, ``b2s_min_h=56``, ``fuse_blocks=False``, ``use_kernels=False``
+   and both, on MobileNetV2 224x224 at b8 and b128, ResNet-18 at b128,
+   SSD-Lite at b8 and DeepLab at b4: the launches per kernel equal to the
+   JAX fused engine's ``pallas_call`` counts under the same options
+   (``POLICY_LAUNCHES``); each conv policy's outputs bit-equal to the
+   default net's; each kernel configuration's bit-equal to the same
+   configuration on the kernels' plain versions and, on 1-2 images, within
+   ``ENGINE_RTOL`` of itself on the CPU (its K1/K2 and K3 round a tie of
+   the output scale's reciprocal apart, as JAX's do, so it may part from
+   the default: printed); every kernel site the default net does not have
+   bit-equal to its plain version; the forward's median ms and peak device
+   memory beside the default's (read before and after);
+   ``autotune_dw_policy`` on MobileNetV2 and SSD-Lite at b8
+   (each candidate's time and spread, a cache hit, a truncated cache
+   raced again); ``roofline_report`` of MobileNetV2 b128 with the card's
+   peaks beside the measured default forward.
+
+Phases 12 and 13 run after 10 and before 11, and 14 to 19 after 11. It
 prints the ``kernels`` JSON line (with each kernel's launches on each
 model's path: the calibrated, the AOT, the zoo's and the sharded
 included), then the card line, then as the last line ``{"ok": true,
@@ -232,27 +252,12 @@ DIS_STEPS_SEG_DET = 10
 DIS_LOSS_RTOL = 1e-6
 DIS_GRAD_RTOL = 1e-4
 
-# (memory bytes/s, dense int8 ops/s) by card; NVIDIA data sheets
-_PEAKS = {
-    "H200": (4.8e12, 1979e12),
-    "H100 PCIe": (2.0e12, 1513e12),
-    "H100": (3.35e12, 1979e12),  # SXM (HBM3)
-}
-
-
 # dp4a instructions per second of one H100 SXM, lanes counted: 63 per clock
 # and SM (dfq_tpu_torch/tools/pipe_rates.py measured 62-64 at 1,980 MHz on
 # an NVIDIA H100 80GB HBM3 at 700 W) x 132 SMs; each does 4 int8 MACs, of
 # which a 3x3 depthwise row sum uses 3. A recorded rate, below the pipe's
 # nominal 64: it enters fused_block_split_bound_ms only, never bound_ms
 DP4A_PER_S = 63 * 132 * 1.98e9
-
-
-def card_peaks(name: str):
-    for key, peaks in _PEAKS.items():
-        if key in name:
-            return key, peaks
-    raise RuntimeError(f"no peak table for card {name!r}")
 
 
 def nvidia_smi_line() -> str:
@@ -1939,6 +1944,208 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
     return {"detail": detail, "launches": launches_by_path}
 
 
+# phase 19: the fused engine's lowering policies (its keyword options, the
+# JAX engine's names and meanings, ``use_kernels`` for its ``use_pallas``),
+# each against the default net; the paths and batches they run at; and the
+# launches a forward makes under the kernel configurations, equal to the JAX
+# fused engine's ``pallas_call`` counts under the same options (read from its
+# trace by tests/test_torch_policies_configs.py). The conv policies move no
+# kernel site: they launch as the default
+POLICIES = {
+    "stem_s2d": {"stem_s2d": True},
+    "dense32_h160": {"dw_dense_max_ch": 32, "dw_dense_max_h": 160},
+    "chpad_k3": {"chpad_k3": True},
+    "im2col": {"k3_matmul": "im2col"},
+    "shift9_all": {"k3_matmul": "shift9", "k3_matmul_min_ch": 0},
+    "b2s56": {"b2s_min_h": 56},
+    "unfused": {"fuse_blocks": False},
+    "no_kernels": {"use_kernels": False},
+    "no_kernels_unfused": {"use_kernels": False, "fuse_blocks": False},
+}
+# (K1, K2, K3) launches a forward, by path and kernel configuration
+POLICY_LAUNCHES = {
+    "mobilenet_v2": {"default": (11, 1, 12), "unfused": (35, 13, 0),
+                     "no_kernels": (0, 0, 12), "no_kernels_unfused": (0, 0, 0)},
+    "resnet18": {"default": (1, 0, 0), "unfused": (1, 0, 0),
+                 "no_kernels": (0, 0, 0), "no_kernels_unfused": (0, 0, 0)},
+    "ssd_lite": {"default": (30, 11, 12), "unfused": (54, 23, 0),
+                 "no_kernels": (0, 0, 12), "no_kernels_unfused": (0, 0, 0)},
+    "deeplab_mnv2": {"default": (38, 0, 0), "unfused": (38, 0, 0),
+                     "no_kernels": (0, 0, 0), "no_kernels_unfused": (0, 0, 0)},
+}
+AUTOTUNE_ROUNDS = 5
+# the classification images the kernel configurations are held on against
+# the CPU: image 13 of the seed's 16 lands on a tie that K1/K2 and K3 round
+# apart (the configurations part from the default there, in JAX too)
+POLICY_CPU_ROWS = slice(12, 14)
+
+
+def phase_policies(ck, wrappers, max_err: dict, gen, paths, card: str) -> dict:
+    """19. Every policy of ``POLICIES`` on each of ``paths`` (``(name, prep,
+    model, default net, input size, batches, inputs, rows for the CPU)``):
+    the launches per kernel as ``POLICY_LAUNCHES`` pins them; a conv
+    policy's outputs bit-equal to the default net's (an exact rewrite); a
+    kernel configuration that routes the requantizations anew (its K1 and
+    K2 round a tie of the output scale's reciprocal as ``f32(1.0 / s)``, K3
+    and the glue as ``f32(1 / f32(s))``, as the JAX engine's kernels do)
+    bit-equal to the same configuration with the kernels' plain versions,
+    and on the CPU rows within ``ENGINE_RTOL`` of itself on the CPU (where
+    the tests hold it equal to JAX's), its difference from the default
+    printed; every kernel site the default net does not have bit-equal to
+    its plain version at the first batch (the others are the default's
+    sites, held in phases 3, 8, 12 and 13); the forward's median ms and
+    peak device memory beside the default's, read before and after them.
+    Then ``autotune_dw_policy`` on
+    MobileNetV2 and SSD-Lite at b8 with a cache in a temporary directory
+    (the race, a hit, a truncated file raced again), and
+    ``roofline_report`` of MobileNetV2 b128 beside its measured default
+    forward."""
+    import tempfile
+
+    import torch
+
+    from dfq_tpu_torch.engine import Int8FusedNet, autotune_dw_policy
+    from dfq_tpu_torch.utils.profiling import device_peaks, roofline_report
+
+    names = list(wrappers)
+    rows, launches_by = [], {}
+    fwd_ms = {}
+    for name, prep, model, net, size, batches, inputs, cpu_rows in paths:
+        residual = {k: v for k, v in prep.params.items() if k not in model.layers}
+        default_sites = [(n, k) for n, k, _ in net.kernel_sites]
+        has_blocks = POLICY_LAUNCHES[name]["default"][2] > 0
+        for bi, batch in enumerate(batches):
+            x = torch.from_numpy(np.resize(inputs, (batch,) + inputs.shape[1:])).to(DEVICE)
+            want, base_launches, _ = launch_forward(ck, net, x)
+            if tuple(base_launches[k] for k in names) != POLICY_LAUNCHES[name]["default"]:
+                raise AssertionError(f"{name} b{batch} default launches {base_launches}")
+            ms0, peak0 = forward_peak(net, x)
+            fwd_ms[(name, batch)] = ms0
+            print(f"policies: {name} b{batch} ({card}): default {ms0:.3f} ms, peak "
+                  f"{peak0 / 2**30:.3f} GiB", flush=True)
+            rows.append({"path": name, "batch": batch, "policy": "default", "ms": ms0,
+                         "peak_bytes": peak0, "launches": base_launches})
+            # the outputs of each routing of the requantizations: (kernels on,
+            # blocks fused); fuse_blocks moves nothing on a path without blocks
+            by_route = {(True, True): ("default", want)}
+            for label, opts in POLICIES.items():
+                pnet = Int8FusedNet(model, device=DEVICE, params_f32=residual, **opts)
+                got, launches, _ = launch_forward(ck, pnet, x)
+                expect = POLICY_LAUNCHES[name].get(label, POLICY_LAUNCHES[name]["default"])
+                if tuple(launches[k] for k in names) != expect:
+                    raise AssertionError(f"{name} b{batch} {label}: launches {launches}, "
+                                         f"expected {expect}")
+                launches_by[f"{name}/b{batch}/{label}"] = launches
+                route = (opts.get("use_kernels", True),
+                         opts.get("fuse_blocks", True) or not has_blocks)
+                row = {"path": name, "batch": batch, "policy": label, "launches": launches}
+                if route in by_route:
+                    same, out = by_route[route]
+                    equal_outputs(f"{name} b{batch} {label} vs the {same} net", got, out)
+                    check = f"outputs == {same}"
+                else:
+                    by_route[route] = (label, got)
+                    check = "a new routing"
+                    if any(launches.values()):
+                        plain_net = Int8FusedNet(model, device=DEVICE, params_f32=residual,
+                                                 plain_kernels=True, **opts)
+                        with torch.no_grad():
+                            equal_outputs(f"{name} b{batch} {label} vs its plain versions",
+                                          got, plain_net(x))
+                        del plain_net
+                        check += ", == its plain versions"
+                    g_, w_ = (v if isinstance(v, tuple) else (v,) for v in (got, want))
+                    d = max(float((a - b).abs().max()) for a, b in zip(g_, w_))
+                    n_rows = int(sum((a != b).reshape(batch, -1).any(1) for a, b in zip(g_, w_)
+                                     ).count_nonzero())
+                    row.update(vs_default_max_abs=d, vs_default_rows=n_rows)
+                    check += f", vs the default: max abs {d:.6g} in {n_rows} of {batch} images"
+                    if bi == 0:
+                        xr = torch.from_numpy(inputs[cpu_rows])
+                        with torch.no_grad():
+                            on_card = pnet(xr.to(DEVICE))
+                            on_cpu = Int8FusedNet(model, device="cpu", params_f32=residual,
+                                                  **opts)(xr)
+                        c_, h_ = (v if isinstance(v, tuple) else (v,) for v in (on_card, on_cpu))
+                        dc = max(float((a.cpu() - b).abs().max()) for a, b in zip(c_, h_))
+                        top = max(float(b.abs().max()) for b in h_)
+                        if not dc <= ENGINE_RTOL * top:
+                            raise AssertionError(f"{name} {label}: card vs CPU max abs {dc} > "
+                                                 f"{ENGINE_RTOL} x {top}")
+                        row["card_vs_cpu_max_abs"] = dc
+                        check += f"; card vs CPU at {xr.shape[0]} images: max abs {dc:.3g}"
+                sites = [(n, k) for n, k, _ in pnet.kernel_sites]
+                if label not in POLICY_LAUNCHES[name] and sites != default_sites:
+                    raise AssertionError(f"{name} {label}: kernel sites moved")
+                new = [s for s in pnet.kernel_sites if (s[0], s[1]) not in default_sites]
+                if bi == 0 and new:
+                    hold_sites(model.graph, size, [(s, batch) for s in new], wrappers,
+                               max_err, gen)
+                ms, peak = forward_peak(pnet, x)
+                row.update(ms=ms, peak_bytes=peak, new_sites_held=len(new) if bi == 0 else 0)
+                rows.append(row)
+                print(f"  {label}: {ms:.3f} ms ({ms / ms0:.3f}x the default), peak "
+                      f"{peak / 2**30:.3f} GiB, launches {tuple(launches[k] for k in names)}, "
+                      f"{check}"
+                      + (f", {len(new)} new kernel sites == plain" if bi == 0 and new else ""),
+                      flush=True)
+                del pnet, got
+            # the default once more: the spread of host-bound forwards
+            # across this block, beside its first reading
+            ms1, peak1 = forward_peak(net, x)
+            rows.append({"path": name, "batch": batch, "policy": "default_again", "ms": ms1,
+                         "peak_bytes": peak1, "launches": base_launches})
+            print(f"  default again: {ms1:.3f} ms ({ms1 / ms0:.3f}x the first reading)",
+                  flush=True)
+            del x, want, by_route
+            torch.cuda.empty_cache()
+
+    # the autotuner: a race, a hit, a truncated cache raced again
+    tune = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / "autotune.json"
+        for name, prep, model, net, size, batches, inputs, _ in paths:
+            if name not in ("mobilenet_v2", "ssd_lite"):
+                continue
+            residual = {k: v for k, v in prep.params.items() if k not in model.layers}
+            x = torch.from_numpy(np.resize(inputs, (BATCH,) + inputs.shape[1:])).to(DEVICE)
+            pol, race = autotune_dw_policy(model, residual, x, cache_path=str(cache),
+                                           rounds=AUTOTUNE_ROUNDS)
+            if race["cached"] or len(race["rows"]) != 3:
+                raise AssertionError(f"autotune {name}: {race}")
+            for r in race["rows"]:
+                print(f"autotune {name} b{BATCH} ({card}): {r['label']} {r['ms']:.4f} ms "
+                      f"(rounds {r['ms_min']:.4f}-{r['ms_max']:.4f})", flush=True)
+            _, hit = autotune_dw_policy(model, residual, x, cache_path=str(cache))
+            if not hit["cached"] or hit["label"] != race["label"]:
+                raise AssertionError(f"autotune {name}: no cache hit: {hit}")
+            text = cache.read_text()
+            cache.write_text(text[: len(text) // 2])
+            _, again = autotune_dw_policy(model, residual, x, cache_path=str(cache),
+                                          rounds=AUTOTUNE_ROUNDS)
+            if again["cached"] or len(again["rows"]) != 3:
+                raise AssertionError(f"autotune {name}: a truncated cache was not raced: {again}")
+            json.loads(cache.read_text())
+            print(f"autotune {name}: winner {race['label']} ({race['ms']:.4f} ms), cache hit "
+                  f"{hit['label']}, truncated cache raced again without an exception: winner "
+                  f"{again['label']}", flush=True)
+            tune[name] = {"race": race, "hit": hit, "after_truncation": again, "policy": pol}
+            del x
+
+    # the roofline of the measured default forward
+    graph = paths[0][2].graph
+    ms = fwd_ms[("mobilenet_v2", BIG_BATCH)]
+    roof = roofline_report(graph, BIG_BATCH, SIZE, peaks=device_peaks(),
+                           measured_time_s=ms * 1e-3)
+    roof = {k: v for k, v in roof.items() if k != "layers"}
+    print(f"roofline MobileNetV2 b{BIG_BATCH} ({card}): per-layer bound {roof['t_sol_s'] * 1e3:.4f}"
+          f" ms ({roof['bound']}-bound, {roof['memory_bound_time_fraction']:.3f} of it in "
+          f"memory-bound layers), aggregate {roof['t_sol_aggregate_s'] * 1e3:.4f} ms; measured "
+          f"{ms:.3f} ms: sol_fraction {roof['sol_fraction']:.4f}", flush=True)
+    return {"launches": launches_by,
+            "detail": {"card": card, "rows": rows, "autotune": tune, "roofline_mnv2_b128": roof}}
+
+
 def main() -> int:
     import torch
 
@@ -1952,6 +2159,7 @@ def main() -> int:
     from dfq_tpu_torch.ops import _build
     from dfq_tpu_torch.ops import cuda_int8 as ck
     from dfq_tpu_torch.serve import MicroBatcher
+    from dfq_tpu_torch.utils.profiling import card_peaks
 
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1960,7 +2168,8 @@ def main() -> int:
     # 1. the card
     card = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    peak_key, (mem_bw, int8_peak) = card_peaks(kind)
+    peak_key, card_peak = card_peaks(kind)  # NVIDIA's data sheets (utils/profiling.py)
+    mem_bw, int8_peak = card_peak["hbm_bytes"], card_peak["int8_ops"]
     print(f"card: {card} (peaks of {peak_key}: {mem_bw / 1e12} TB/s, "
           f"{int8_peak / 1e12} int8 TOP/s)", flush=True)
 
@@ -2269,6 +2478,17 @@ def main() -> int:
     par = phase_parallel(ck, wrappers, max_err, gen,
                          {"prep": prep, "model": model, "residual": residual, "net": net}, seg)
     detail["parallel"] = par["detail"]
+
+    # 19. the fused engine's policies (launch counts are read around each forward)
+    pol = phase_policies(ck, wrappers, max_err, gen, [
+        ("mobilenet_v2", prep, model, net, SIZE, (BATCH, BIG_BATCH), images, POLICY_CPU_ROWS),
+        ("resnet18", r18["prep"], r18["model"], r18["net"], SIZE, (BIG_BATCH,), images,
+         POLICY_CPU_ROWS),
+        ("ssd_lite", ssd["prep"], ssd["model"], ssd["net"], SSD_SIZE, (BATCH,), ssd["inputs"],
+         slice(0, 2)),
+        ("deeplab_mnv2", seg["prep"], seg["model"], seg["net"], SEG_SIZE, (SEG_BATCH,),
+         seg["images"], slice(0, 1))], card)
+    detail["policies"] = pol["detail"]
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 
@@ -2296,7 +2516,8 @@ def main() -> int:
                                  "mobilenet_v2_calibrated": calib["launches"][k],
                                  "mobilenet_v2_aot": aot_run["launches"][k],
                                  **{m: r["launches"][k] for m, r in zoo["models"].items()},
-                                 **{p: n[k] for p, n in par["launches"].items()}},
+                                 **{p: n[k] for p, n in par["launches"].items()},
+                                 **{f"policies/{p}": n[k] for p, n in pol["launches"].items()}},
         })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:

@@ -10,3 +10,9 @@ caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
+
+from dfq_tpu_torch.quant.core import (  # noqa: F401
+    QSpec,
+    fake_quant,
+    quant_params,
+)

@@ -20,14 +20,22 @@ fake-quant. All ``bits_act <= 8`` regimes run here.
 
 The int8 products are exact by construction, for any K: float64 on the
 CPU; on CUDA, dense convs are ``k*k`` accumulated int8 GEMMs over shifted
-views of the zero-point-padded input (the JAX package's
-``_int8_conv_shift9``) and linear layers one int8 GEMM, both
+views of the zero-point-padded input (:func:`int8_conv_shift9`, the JAX
+package's ``_int8_conv_shift9``) and linear layers one int8 GEMM, both
 ``torch._int_mm`` (int8 x int8 -> int32 on the tensor cores; the JAX
 package leaves these products to XLA), zero-padded to its shape rule.
 Grouped convs, and dense convs whose ``Cin`` is not a multiple of 8 (the
 3-channel stems), run as an f32 cuDNN conv with TF32 off, exact while
 ``K = Cin/groups * kh * kw <= 1024``; beyond that they too go to
 ``torch._int_mm``, a group at a time.
+
+The fused engine's policies (``engine/int8_fused.py``) lower a conv in
+two more exact forms: :func:`int8_conv_im2col` (one GEMM over the
+concatenated shifted views) and :func:`int8_conv_b2s` (the batch stacked
+along H with zero-point seams, one VALID conv). Each form's weights are
+packed for it (:func:`pack_int8_product`'s ``form``); on the CPU the
+shifted-view forms take float64 products a tap or a patch, never the f64
+``F.conv2d`` of :func:`int8_conv`'s default route.
 """
 
 from __future__ import annotations
@@ -178,9 +186,14 @@ class Int8Product:
     - ``"f64"`` (the CPU): ``w`` float64, OIHW or ``[N, K]``;
     - ``"f32"`` (CUDA, grouped convs and small-channel stems with
       K <= 1024): ``w`` float32 OIHW, cuDNN with TF32 off;
-    - ``"int_mm"`` (CUDA): ``w`` int8 ``[groups, kh*kw, Np, Kp]``, one
-      row-major ``[N, K]`` matrix a group and tap, N and K zero-padded to
-      multiples of 8 (a linear layer: one group, one tap).
+    - ``"int_mm"``: ``w`` ``[groups, kh*kw, Np, Kp]``, one row-major
+      ``[N, K]`` matrix a group and tap, N and K zero-padded to multiples
+      of 8 (a linear layer: one group, one tap); int8 for
+      ``torch._int_mm`` (CUDA), or float64 (the CPU's shift9 and b2s
+      forms);
+    - ``"im2col"``: ``w`` ``[1, 1, Np, Kp]``, the ``[N, kh*kw*Cin]``
+      matrix in (ky, kx, cin) order, padded as ``"int_mm"``; int8 on CUDA,
+      float64 on the CPU.
     """
 
     route: str
@@ -188,10 +201,29 @@ class Int8Product:
     n_out: int  # output channels (before padding)
 
 
-def pack_int8_product(qweight: np.ndarray, node, device) -> Int8Product:
-    """Pack an int8 OIHW conv weight (or ``[N, K]`` linear weight) for
-    :func:`int8_conv` / :func:`int8_linear` on ``device``."""
+# the lowerings a conv's product can be packed for (pack_int8_product)
+FORMS = ("conv", "b2s", "shift9", "im2col")
+
+
+def pack_int8_product(qweight: np.ndarray, node, device, form: str = "conv") -> Int8Product:
+    """Pack an int8 OIHW conv weight (or ``[N, K]`` linear weight) on
+    ``device`` for the conv's lowering ``form``:
+
+    - ``"conv"``: :func:`int8_conv`'s route (``"f64"`` on the CPU;
+      ``"f32"`` or ``"int_mm"`` on CUDA, by the rule of the module
+      docstring);
+    - ``"b2s"``: :func:`int8_conv_b2s`, the same route on CUDA, per-tap
+      float64 products (``"int_mm"``) on the CPU;
+    - ``"shift9"``: :func:`int8_conv_shift9` (``"int_mm"``);
+    - ``"im2col"``: :func:`int8_conv_im2col` (``"im2col"``)."""
+    if form not in FORMS:
+        raise ValueError(f"unknown conv form {form!r}; expected one of {FORMS}")
     dev = resolve_device(device)
+    exact = torch.float64 if dev.type == "cpu" else torch.int8
+    if form == "im2col":
+        return pack_im2col(qweight, dev, exact)
+    if form == "shift9" or (form == "b2s" and dev.type == "cpu"):
+        return pack_int_mm(qweight, node, dev, exact)
     qw = torch.as_tensor(np.asarray(qweight))
     if dev.type == "cpu":
         return Int8Product("f64", qw.to(torch.float64).contiguous(), qw.shape[0])
@@ -204,9 +236,16 @@ def pack_int8_product(qweight: np.ndarray, node, device) -> Int8Product:
     return pack_int_mm(qweight, node, dev)
 
 
-def pack_int_mm(qweight: np.ndarray, node, device) -> Int8Product:
-    """The ``"int_mm"`` packing (any device: ``torch._int_mm`` runs on the
-    CPU too, which the tests use to check the padding)."""
+def _pad_nk(w: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last two dims (N, K) to multiples of 8."""
+    n, k = w.shape[-2:]
+    return F.pad(w, (0, _round_up(k, INT_MM_ALIGN) - k, 0, _round_up(n, INT_MM_ALIGN) - n))
+
+
+def pack_int_mm(qweight: np.ndarray, node, device, dtype=torch.int8) -> Int8Product:
+    """The ``"int_mm"`` packing, on any device (``torch._int_mm`` runs on
+    the CPU too, which the tests use to check the padding); ``dtype``
+    float64 holds the same layout for the CPU's per-tap products."""
     qw = torch.as_tensor(np.asarray(qweight))
     n_out = qw.shape[0]
     if node.op == "linear":
@@ -216,9 +255,18 @@ def pack_int_mm(qweight: np.ndarray, node, device) -> Int8Product:
         groups = node.attrs["groups"]
         # [O, cin_g, kh, kw] -> [groups, kh*kw, O/groups, cin_g]
         taps = qw.reshape(groups, O // groups, cin_g, kh * kw).permute(0, 3, 1, 2)
-    n, k = taps.shape[-2:]
-    taps = F.pad(taps, (0, _round_up(k, INT_MM_ALIGN) - k, 0, _round_up(n, INT_MM_ALIGN) - n))
-    return Int8Product("int_mm", taps.to(device=device, dtype=torch.int8).contiguous(), n_out)
+    return Int8Product("int_mm", _pad_nk(taps).to(device=device, dtype=dtype).contiguous(),
+                       n_out)
+
+
+def pack_im2col(qweight: np.ndarray, device, dtype=torch.int8) -> Int8Product:
+    """The ``"im2col"`` packing of a dense OIHW conv weight: ``[N,
+    kh*kw*Cin]`` in (ky, kx, cin) order, the order in which
+    :func:`int8_conv_im2col` concatenates its views."""
+    qw = torch.as_tensor(np.asarray(qweight))
+    w = qw.permute(0, 2, 3, 1).reshape(1, 1, qw.shape[0], -1)
+    return Int8Product("im2col", _pad_nk(w).to(device=device, dtype=dtype).contiguous(),
+                       qw.shape[0])
 
 
 def shifted_views(xp: torch.Tensor, node):
@@ -235,34 +283,123 @@ def shifted_views(xp: torch.Tensor, node):
     return views, oh, ow
 
 
-def int8_conv(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
-    """int8 NHWC conv -> int32 NHWC, with zero-point padding: real 0
-    quantizes to ``zp``, so the spatial padding holds ``zp`` for the
-    ``acc - zp * colsum(w)`` fold to be exact at the borders."""
+def _mm_exact(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] int8`` times a packed ``[Np, Kp]`` matrix -> int32
+    ``[M, Np]``: ``torch._int_mm`` for an int8 matrix, float64 for a
+    float64 one (every sum below 2^53)."""
+    if w_nk.dtype == torch.int8:
+        return int_mm_exact(a, w_nk)
+    return (a.to(torch.float64) @ w_nk[:, :a.shape[1]].t()).to(torch.int32)
+
+
+def _tap_products(views, prod: Int8Product) -> torch.Tensor:
+    """``sum_t view_t @ W_t`` over the taps, a group at a time -> int32
+    ``[M, n_out]``."""
+    groups = prod.w.shape[0]
+    cin_g = views[0].shape[-1] // groups
+    opg = prod.n_out // groups
+    if prod.w.dtype == torch.float64:
+        # every group at once; float64 sums are exact
+        acc = None
+        for t, v in enumerate(views):
+            d = torch.einsum("mgk,gnk->mgn", v.reshape(-1, groups, cin_g).to(torch.float64),
+                             prod.w[:, t, :, :cin_g])
+            acc = d if acc is None else acc.add_(d)
+        return acc[:, :, :opg].reshape(acc.shape[0], -1).to(torch.int32)
+    outs = []
+    for g in range(groups):
+        acc = None
+        for t, v in enumerate(views):
+            a2 = v[..., g * cin_g:(g + 1) * cin_g].reshape(-1, cin_g)
+            d = _mm_exact(a2, prod.w[g, t])
+            acc = d if acc is None else acc.add_(d)
+        outs.append(acc[:, :opg])
+    return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
+
+
+def _conv_valid(xp: torch.Tensor, node, prod: Int8Product) -> torch.Tensor:
+    """The unpadded (VALID) int8 NHWC conv of ``xp`` -> int32 NHWC by
+    ``prod``'s route; ``node``'s padding is not read."""
     a = node.attrs
-    ph, pw = a["padding"]
-    xp = F.pad(xq, (0, 0, pw, pw, ph, ph), value=zp) if (ph, pw) != (0, 0) else xq
-    if prod.route != "int_mm":
+    B = xp.shape[0]
+    if prod.route in ("f64", "f32"):
         dtype = torch.float64 if prod.route == "f64" else torch.float32
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             acc = F.conv2d(xp.permute(0, 3, 1, 2).to(dtype), prod.w, stride=a["stride"],
                            dilation=a["dilation"], groups=a["groups"])
         return acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
     views, oh, ow = shifted_views(xp, node)
-    B = xq.shape[0]
-    groups = prod.w.shape[0]
-    cin_g = xq.shape[-1] // groups
-    outs = []
-    for g in range(groups):
-        acc = None
-        for t, v in enumerate(views):
-            a2 = v[..., g * cin_g:(g + 1) * cin_g].reshape(-1, cin_g)
-            d = int_mm_exact(a2, prod.w[g, t])
-            acc = d if acc is None else acc.add_(d)
-        outs.append(acc)
-    acc = outs[0] if groups == 1 else torch.cat(
-        [o[:, :prod.n_out // groups] for o in outs], dim=-1)
-    return acc[:, :prod.n_out].reshape(B, oh, ow, prod.n_out)
+    if prod.route == "im2col":
+        patches = torch.cat(views, dim=-1)
+        acc = _mm_exact(patches.reshape(-1, patches.shape[-1]), prod.w[0, 0])[:, :prod.n_out]
+    else:
+        acc = _tap_products(views, prod)
+    return acc.reshape(B, oh, ow, prod.n_out)
+
+
+def _zp_pad(xq: torch.Tensor, node, zp: int) -> torch.Tensor:
+    ph, pw = node.attrs["padding"]
+    return F.pad(xq, (0, 0, pw, pw, ph, ph), value=zp) if (ph, pw) != (0, 0) else xq
+
+
+def int8_conv(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+    """int8 NHWC conv -> int32 NHWC, with zero-point padding: real 0
+    quantizes to ``zp``, so the spatial padding holds ``zp`` for the
+    ``acc - zp * colsum(w)`` fold to be exact at the borders."""
+    return _conv_valid(_zp_pad(xq, node, zp), node, prod)
+
+
+def int8_conv_shift9(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+    """Dense ``k*k`` int8 conv as ``k^2`` accumulated GEMMs over shifted
+    views of the zero-point-padded input (``prod`` packed for
+    ``"shift9"``): ``[B*oh*ow, Cin] x [Cin, Cout]`` a tap, ``torch._int_mm``
+    on CUDA, float64 on the CPU. Exact; any stride and dilation."""
+    if prod.route != "int_mm" or node.attrs["groups"] != 1:
+        raise ValueError("int8_conv_shift9 takes a dense conv packed for 'shift9'")
+    return int8_conv(xq, node, prod, zp)
+
+
+def int8_conv_im2col(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+    """Dense ``k*k`` int8 conv as ONE GEMM over the ``k^2`` shifted views
+    concatenated along channels (``[B*oh*ow, k^2*Cin]``, (ky, kx, cin)
+    order) against the ``"im2col"``-packed weight. Exact; any stride and
+    dilation."""
+    if prod.route != "im2col" or node.attrs["groups"] != 1:
+        raise ValueError("int8_conv_im2col takes a dense conv packed for 'im2col'")
+    return int8_conv(xq, node, prod, zp)
+
+
+def b2s_applicable(node, h: int) -> bool:
+    """Whether the batch-to-space fold is exact for this conv at input
+    height ``h``: no dilation, ``k >= s``, a padding (the seam is the
+    per-image padding) and ``(h + 2p) % s == 0``."""
+    a = node.attrs
+    kh, _ = a["kernel"]
+    sh, _ = a["stride"]
+    ph, _ = a["padding"]
+    return a["dilation"] == (1, 1) and kh >= sh and ph > 0 and (h + 2 * ph) % sh == 0
+
+
+def int8_conv_b2s(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+    """Batch-to-space fold of an int8 conv: each image zero-point padded,
+    the padded images stacked along H into one ``B*(H+2p)``-tall image (and
+    ``k - s`` more zp rows), one VALID conv over the stack, and the
+    ``(2p + k - s)/s`` rows computed across each seam dropped after an
+    exact reshape. Every block is ``H + 2p`` rows, a multiple of the
+    stride, so block ``i``'s first ``out_h`` rows are image ``i``'s conv.
+    Needs :func:`b2s_applicable`; ``prod`` packed for ``"b2s"``."""
+    a = node.attrs
+    kh, _ = a["kernel"]
+    sh, _ = a["stride"]
+    ph, pw = a["padding"]
+    b, h, w, c = xq.shape
+    hp = h + 2 * ph
+    xf = _zp_pad(xq, node, zp).reshape(1, b * hp, w + 2 * pw, c)
+    if kh > sh:  # trailing zp rows: the VALID conv emits exactly b * hp / s rows
+        xf = F.pad(xf, (0, 0, 0, 0, 0, kh - sh), value=zp)
+    acc = _conv_valid(xf, node, prod)
+    out_h = (hp - kh) // sh + 1
+    return acc.reshape(b, hp // sh, acc.shape[2], acc.shape[3])[:, :out_h]
 
 
 def int8_linear(xq: torch.Tensor, prod: Int8Product) -> torch.Tensor:

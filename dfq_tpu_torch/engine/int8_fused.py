@@ -1,9 +1,10 @@
 """Fused int8-to-int8 execution on the hand-written kernels (port of
-``dfq_tpu/engine/int8_fused.py``, configuration ``use_pallas=True,
-fuse_blocks=True``).
+``dfq_tpu/engine/int8_fused.py``).
 
 Each conv's requantization to its consumer's input grid is fused into the
-conv epilogue, so inter-layer tensors stay int8:
+conv epilogue, so inter-layer tensors stay int8. Under the default options
+(``use_kernels=True, fuse_blocks=True``, the JAX engine's ``use_pallas=True,
+fuse_blocks=True``):
 
 - pointwise convs and linear layers run on K1 (``matmul_int8_requant``),
   stride-1 depthwise 3x3 convs on K2 (``dw3x3_int8_requant``), and each
@@ -27,14 +28,32 @@ conv epilogue, so inter-layer tensors stay int8:
   dequantized inputs with the engine's site fake-quant, as the JAX
   engine's generic fallback.
 
+The JAX engine's lowering policies are options of :class:`Int8FusedNet`
+and :func:`execute_int8_fused`, with its names and routing order; each is
+an exact rewrite of the convs no kernel takes, so none changes an output:
+``stem_s2d`` (space-to-depth stem), ``dw_dense_max_ch`` /
+``dw_dense_max_h`` (depthwise as a dense-diagonal conv), ``chpad_k3``
+(zero-weight channel padding), ``k3_matmul`` (dense 3x3 convs as shift9
+or im2col GEMMs), ``b2s_min_h`` (batch-to-space fold), and ``auto_config``
+for the ``"auto"`` values. Their defaults here keep the forward that the
+card runs without them (see :func:`auto_config`); they were tuned on the
+TPU and none has been chosen by a measurement on this card yet. The two
+kernel options, ``use_kernels`` and ``fuse_blocks``, choose which code
+rounds each requantization, and the JAX engine's kernels round a tie of
+the output scale's reciprocal in two ways (K1 and K2 multiply by
+``f32(1.0 / s)``, K3 and the glue by ``f32(1 / f32(s))``): like the JAX
+engine's, their outputs can differ from the default's by a grid step
+where a value lands on such a tie, and equal the JAX engine's under the
+same options bit for bit.
+
+``profile_barriers`` has no counterpart: it stops XLA fusing depthwise
+convs into their neighbours for a trace, and eager PyTorch fuses nothing;
+per-node device rows come from ``dfq_tpu_torch/tools/profile_forward.py``.
+
 The int8 tensor carried on an edge uses the CONSUMER's site quantization
 params (:func:`_consumer_plan`). The f32 glue mirrors the forms XLA
 compiles the JAX engine into (``dfq_tpu_torch/ops/rounding.py``), so the
 port's logits match the JAX engine's.
-
-The XLA-only policies of the JAX engine (``stem_s2d``, ``dw_dense_*``,
-``chpad_k3``, ``k3_matmul``, ``b2s_min_h``, ``auto_config``) are bit-exact
-rewrites and are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -48,7 +67,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from dfq_tpu_torch.device import resolve_device
-from dfq_tpu_torch.engine.int8 import Int8Model, int8_conv, pack_int8_product
+from dfq_tpu_torch.engine.int8 import (
+    Int8Model,
+    b2s_applicable,
+    int8_conv,
+    int8_conv_b2s,
+    int8_conv_im2col,
+    int8_conv_shift9,
+    int8_linear,
+    pack_int8_product,
+)
 from dfq_tpu_torch.graph.executor import apply_op, highest_precision, params_to
 from dfq_tpu_torch.graph.ir import Graph
 from dfq_tpu_torch.ops import cuda_int8 as kernels
@@ -94,6 +122,104 @@ def _requant_i8(t: QTensor, scale: float, zp: int) -> torch.Tensor:
         return t.q
     # (q - zp) * (s / s') + (zp' + 128) as one FMA; the ratio is Python's
     return requant_i8(t.q, t.zp, f32(t.scale / scale), zp)
+
+
+def _s2d_weights(qw: np.ndarray) -> np.ndarray:
+    """Rewrite an odd-k, stride-2, pad-(k//2) stem conv's OIHW int8
+    weights into the exact space-to-depth(2) equivalent: a
+    ceil(k/2)-kernel stride-1 conv over 4x the channels. Tap (di, dj)
+    maps to kernel position (di//2, dj//2) and packed channel
+    ((di%2)*2 + dj%2)*C + c; unused positions are zero (so wsum is
+    unchanged)."""
+    o, c, kh, kw = qw.shape
+    k2h, k2w = (kh + 1) // 2, (kw + 1) // 2
+    w2 = np.zeros((o, 4 * c, k2h, k2w), np.int8)
+    for di in range(kh):
+        for dj in range(kw):
+            ki, pi = di // 2, di % 2
+            kj, pj = dj // 2, dj % 2
+            w2[:, (pi * 2 + pj) * c: (pi * 2 + pj) * c + c, ki, kj] = qw[:, :, di, dj]
+    return w2
+
+
+def _space_to_depth2(xq: torch.Tensor, zp: int, pad: int = 1) -> torch.Tensor:
+    """Pad by ``pad`` with zp then pack 2x2 pixel patches into channels:
+    [N, H, W, C] -> [N, (H+2p)/2, (W+2p)/2, 4C]. Requires H+2p even."""
+    n, h, w, c = xq.shape
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad), value=zp)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    y = xp.reshape(n, hp // 2, 2, wp // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return y.reshape(n, hp // 2, wp // 2, 4 * c)
+
+
+def _dense_diag_weights(qw: np.ndarray) -> np.ndarray:
+    """Depthwise OIHW [C,1,kh,kw] int8 -> dense [C,C,kh,kw] with the taps
+    on the diagonal: dw(x, w) == conv(x, W), exactly (same int8 taps,
+    zeros elsewhere; wsum unchanged), at C x the MACs."""
+    c, _, kh, kw = qw.shape
+    w = np.zeros((c, c, kh, kw), np.int8)
+    w[np.arange(c), np.arange(c)] = qw[:, 0]
+    return w
+
+
+def _chpad_target(cin: int, kernel, groups: int) -> int:
+    """Channel-pad target of a dense conv, or 0: 4 for the 3-channel
+    stems (any kernel size); for a 3x3 conv with Cin above 128 and not a
+    multiple of 128, the next multiple of 128 while that costs at most
+    1.35x the MACs. Zero weight rows make the padding exact. The JAX
+    engine's rule, tuned on the TPU (its lanes are 128 wide)."""
+    if groups != 1:
+        return 0
+    if cin < 4:
+        return 4
+    if tuple(kernel) != (3, 3):
+        return 0
+    if cin <= 128 or cin % 128 == 0:
+        return 0
+    t = ((cin + 127) // 128) * 128
+    return t if t <= cin * 1.35 else 0
+
+
+def auto_config(batch_per_device: int) -> Tuple[int, bool]:
+    """The batch-dependent policy ``(dw_dense_max_ch, stem_s2d)`` that
+    ``"auto"`` resolves to, on this card: ``(0, False)`` at every batch.
+
+    The JAX engine's rule (dense-diagonal depthwise up to 32 channels at
+    per-device batch <= 8, the s2d stem from batch 64) was measured on the
+    TPU, where XLA's grouped-conv configs collapse at small batch. No
+    measurement on the H100 has chosen a policy yet, so ``"auto"`` keeps
+    the forward the card runs without the rewrites; a benchmark cell that
+    can judge one is what would change this. ``batch_per_device`` is the
+    batch one device runs (a sharded caller's global batch / shards)."""
+    del batch_per_device
+    return 0, False
+
+
+K3_MATMUL = ("off", "auto", "shift9", "im2col")
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """The batch-dependent options, resolved: one set of packed steps
+    each (:meth:`Int8FusedNet.plan`)."""
+
+    dw_dense_max_ch: int
+    stem_s2d: bool
+    dw_dense_max_h: int
+
+
+def resolve_policy(batch: int, stem_s2d="auto", dw_dense_max_ch="auto",
+                   dw_dense_max_h="auto") -> Policy:
+    """``"auto"`` against the per-device ``batch``, as the JAX engine
+    resolves it (``int8_fused.py:362-379``): ``dw_dense_max_ch`` and
+    ``stem_s2d`` from :func:`auto_config`, ``dw_dense_max_h`` 160 at batch
+    1 and 128 above (the TPU's measured gate, kept as the JAX engine's).
+    With dense-diagonal depthwise off, the height gate reads 0."""
+    auto_dw, auto_stem = auto_config(batch)
+    ch = auto_dw if dw_dense_max_ch == "auto" else int(dw_dense_max_ch)
+    stem = auto_stem if stem_s2d == "auto" else bool(stem_s2d)
+    h = (160 if batch <= 1 else 128) if dw_dense_max_h == "auto" else int(dw_dense_max_h)
+    return Policy(ch, stem, h if ch else 0)
 
 
 # ops through which an output grid propagates backward unchanged
@@ -299,6 +425,19 @@ def _is_dw1(node) -> bool:
 
 
 Step = Callable[[Dict[str, Any], set], None]
+Acc = Callable[[torch.Tensor], torch.Tensor]  # int8 NHWC input -> int32 accumulator
+
+
+@dataclasses.dataclass
+class Lowering:
+    """The packed forward of one resolved :class:`Policy`: the steps, the
+    kernel sites they launch and the exact int8 products of the other
+    lowered layers."""
+
+    policy: Policy
+    steps: List[Tuple[str, Step]]
+    kernel_sites: List[Tuple[str, str, Any]]
+    products: Dict[str, Any]
 
 
 class Int8FusedNet(nn.Module):
@@ -315,25 +454,80 @@ class Int8FusedNet(nn.Module):
     ``params_f32`` supplies the f32 params of the layers that were not
     lowered (and of ``l2norm``), as the JAX engine's ``params_f32``.
 
+    The keyword options are the JAX engine's, with its meanings and its
+    routing order for a lowered layer (``int8_fused.py:415-671``): a
+    fusable block on K3 (``fuse_blocks``; K3 launches whether or not
+    ``use_kernels`` is set, as the JAX engine's blocks run on their kernel
+    whatever ``use_pallas`` says); then the s2d stem (``stem_s2d``: a
+    k3s2p1 conv on the graph input, even input height); then the kernel
+    sites (``use_kernels``, JAX's ``use_pallas``: pointwise convs and
+    linear layers on K1, stride-1 depthwise 3x3 on K2); then, for a
+    depthwise conv of at most ``dw_dense_max_ch`` channels on a map at
+    most ``dw_dense_max_h`` high, the dense-diagonal conv; then channel
+    padding (``chpad_k3``, :func:`_chpad_target`); then a dense 3x3 conv as
+    GEMMs (``k3_matmul``: ``"shift9"`` or ``"im2col"`` for every such
+    conv with ``in_ch >= k3_matmul_min_ch``; ``"auto"`` shift9 for the
+    dilated ones with ``in_ch >= 256``, where ``in_ch`` is read after
+    channel padding, as the JAX engine reads it, so a dilated conv of 200
+    channels padded to 256 qualifies; ``"off"``); then the batch-to-space
+    fold (``b2s_min_h``: input height at least this, batch above 1,
+    :func:`~dfq_tpu_torch.engine.int8.b2s_applicable`; 0 disables); then
+    :func:`~dfq_tpu_torch.engine.int8.int8_conv`. Linear layers off the
+    kernels are one exact int8 GEMM. Every route is exact, so the conv
+    policies give the default's outputs bit for bit; ``use_kernels`` and
+    ``fuse_blocks`` move requantizations between kernels whose reciprocal
+    forms differ (module docstring), as in the JAX engine.
+
+    Defaults, and where they differ from the JAX engine's: ``use_kernels``
+    and ``fuse_blocks`` on (JAX: off); ``stem_s2d``, ``dw_dense_max_ch``
+    and ``dw_dense_max_h`` ``"auto"`` (resolved by this card's
+    :func:`auto_config`); ``k3_matmul="auto"``, JAX's rule, whose shift9
+    form is :func:`int8_conv`'s own route on CUDA; ``chpad_k3`` off (JAX:
+    on; its 128-lane rule is the TPU's and is not measured here);
+    ``b2s_min_h=0``. ``"auto"`` resolves against ``per_device_batch``, or
+    the forward's batch where it is None; each resolved :class:`Policy`
+    packs its steps once (:meth:`lowering`), and the operands that two
+    policies share are packed once.
+
     ``kernel_sites`` lists ``(node, kernel name, packed operands)`` of
-    every kernel launch a forward makes when every fusable block fits;
-    ``products`` the packed exact int8 product of every other lowered conv.
+    every kernel launch the last forward's policy makes when every
+    fusable block fits (before the first forward: the policy at
+    ``per_device_batch``, or at a batch above 1); ``products`` the packed
+    exact int8 product of every other lowered layer, of the route its
+    static options pick (a dense-diagonal or s2d conv falls back to its
+    plain product where the map's height fails the gate, as in the JAX
+    engine).
     """
 
     def __init__(self, model: Int8Model, device=None, plain_kernels: bool = False,
-                 params_f32: Optional[Dict[str, Dict[str, Any]]] = None):
+                 params_f32: Optional[Dict[str, Dict[str, Any]]] = None, *,
+                 use_kernels: bool = True, fuse_blocks: bool = True, stem_s2d="auto",
+                 dw_dense_max_ch="auto", dw_dense_max_h="auto", b2s_min_h: int = 0,
+                 k3_matmul: str = "auto", k3_matmul_min_ch: int = 0, chpad_k3: bool = False,
+                 per_device_batch: Optional[int] = None):
         super().__init__()
         if model.bits_act != 8:
             raise ValueError(
                 "fused int8 engine requires bits_act=8; "
                 f"A{model.bits_act} regimes are not ported"
             )
+        if k3_matmul not in K3_MATMUL:
+            raise ValueError(f"k3_matmul={k3_matmul!r}; expected one of {K3_MATMUL}")
         self.device = resolve_device(device)
         self.model = model
         self.params = params_to(params_f32 or {}, self.device)
+        self.use_kernels = use_kernels
+        self.options = dict(stem_s2d=stem_s2d, dw_dense_max_ch=dw_dense_max_ch,
+                            dw_dense_max_h=dw_dense_max_h)
+        self.b2s_min_h = b2s_min_h
+        self.k3_matmul = k3_matmul
+        self.k3_matmul_min_ch = k3_matmul_min_ch
+        self.chpad_k3 = chpad_k3
+        self.per_device_batch = per_device_batch
         graph = model.graph
         self.plan = _consumer_plan(graph, model)
-        self.blocks = _blocks_that_run(graph, _find_fusable_blocks(graph, model, self.plan))
+        self.blocks = (_blocks_that_run(graph, _find_fusable_blocks(graph, model, self.plan))
+                       if fuse_blocks else {})
         self._fused_away = {n for b in self.blocks.values() for n in b["skip"]}
         self._fused_away.update(b["final"] for b in self.blocks.values())
         self._fused_away.update(self.blocks)
@@ -341,18 +535,37 @@ class Int8FusedNet(nn.Module):
         # CPU), or its plain version on any device
         impl = "plain" if plain_kernels else "packed"
         self._run = {k: getattr(kernels, f"{k}_{impl}") for k in kernels.LAUNCHES}
-        self.kernel_sites: List[Tuple[str, str, Any]] = []
-        # the exact int8 product of every lowered conv that has no kernel
-        self.products: Dict[str, Any] = {}
         self.input_name = graph.input_names()[0]
         self.outputs = graph.outputs
+        self._packed: Dict[Tuple[str, str], Any] = {}
+        self._lowerings: Dict[Policy, Lowering] = {}
+        self._use(self.lowering(per_device_batch or 2))
+
+    def policy(self, batch: int) -> Policy:
+        """The options resolved for a forward at per-device ``batch``."""
+        return resolve_policy(batch, **self.options)
+
+    def lowering(self, batch: int) -> Lowering:
+        """The packed forward at per-device ``batch``, built on first use."""
+        pol = self.policy(batch)
+        if pol not in self._lowerings:
+            self._lowerings[pol] = self._build_lowering(pol)
+        return self._lowerings[pol]
+
+    def _use(self, low: Lowering) -> Lowering:
+        self.kernel_sites, self.products = low.kernel_sites, low.products
+        return low
+
+    def _build_lowering(self, policy: Policy) -> Lowering:
+        self._policy = policy
+        self._low = Lowering(policy, [], [], {})
         # grid of every node's output as this engine produces it (None:
         # f32); fixed by the plan, so every decision below is static
         self._grids: Dict[str, Optional[Grid]] = {self.input_name: None}
-        self._steps: List[Tuple[str, Step]] = []
-        for node in graph:
+        for node in self.model.graph:
             if node.op != "input":
-                self._steps.append((node.name, self._build(node)))
+                self._low.steps.append((node.name, self._build(node)))
+        return self._low
 
     # -- packing ----------------------------------------------------------
     def _t(self, a, dtype) -> torch.Tensor:
@@ -362,6 +575,18 @@ class Int8FusedNet(nn.Module):
         if layer.bias is not None:
             return layer.bias
         return np.zeros(layer.qweight.shape[0], np.float32)
+
+    def _pack(self, key: Tuple[str, str], make: Callable[[], Any]) -> Any:
+        """Pack once per key, whichever policies share the operands."""
+        if key not in self._packed:
+            self._packed[key] = make()
+        return self._packed[key]
+
+    def _product(self, name: str, variant: str, qweight, node, form: str = "conv"):
+        if form == "b2s" and self.device.type != "cpu":
+            form = "conv"  # the same packing on CUDA
+        return self._pack((name, f"{variant}/{form}"),
+                          lambda: pack_int8_product(qweight, node, self.device, form))
 
     def _build(self, node) -> Step:
         model, name, op = self.model, node.name, node.op
@@ -402,11 +627,12 @@ class Int8FusedNet(nn.Module):
         get = self._getter(src, in_grid)
         s_out, zp_out = sp if sp is not None else (1.0, 0)
         out_ch = layer.qweight.shape[0]
-        if node.op == "linear" or _is_pw(node):
-            op = kernels.pack_matmul(
+        is_stem = self._is_s2d_stem(node)
+        if self.use_kernels and not is_stem and (node.op == "linear" or _is_pw(node)):
+            op = self._pack((name, "k1"), lambda: kernels.pack_matmul(
                 layer.qweight.reshape(out_ch, -1), comb, self._bias(layer), layer.wsum,
                 zp_in=layer.in_zp, s_out=float(s_out), zp_out=int(zp_out),
-                out_f32=sp is None, device=self.device)
+                out_f32=sp is None, device=self.device))
             self._site(name, "matmul_int8_requant", op)
             run = self._run["matmul_int8_requant"]
 
@@ -416,11 +642,11 @@ class Int8FusedNet(nn.Module):
                 self._store(env, name, q.reshape(xq.shape[:-1] + (out_ch,)), sp)
 
             return pw
-        if _is_dw1(node):
-            op = kernels.pack_dw3x3(
+        if self.use_kernels and not is_stem and _is_dw1(node):
+            op = self._pack((name, "k2"), lambda: kernels.pack_dw3x3(
                 layer.qweight[:, 0].reshape(out_ch, 9).T, comb, self._bias(layer),
                 zp_in=layer.in_zp, s_out=float(s_out), zp_out=int(zp_out),
-                out_f32=sp is None, device=self.device)
+                out_f32=sp is None, device=self.device))
             self._site(name, "dw3x3_int8_requant", op)
             run = self._run["dw3x3_int8_requant"]
 
@@ -428,21 +654,114 @@ class Int8FusedNet(nn.Module):
                 self._store(env, name, run(get(env), op), sp)
 
             return dw
-        # any other conv: exact integer conv + the epilogue in plain torch
-        prod = self.products[name] = pack_int8_product(layer.qweight, node, self.device)
+        # any other layer: an exact integer product by the policy's route,
+        # and the epilogue in plain torch
+        acc_of = self._route(node, layer, is_stem)
         wsum = self._t(layer.wsum, torch.int32)
         comb_t = self._t(comb, torch.float32)
         bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
         zp = layer.in_zp
 
         def conv(env, done):
-            acc = int8_conv(get(env), node, prod, zp) - zp * wsum
+            acc = acc_of(get(env)) - zp * wsum
             a = acc.to(torch.float32)
             # f32(acc) * comb + bias: one FMA under XLA:CPU
             out = a * comb_t if bias is None else fma_f32(a, comb_t, bias)
             self._emit(env, name, out)
 
         return conv
+
+    def _is_s2d_stem(self, node) -> bool:
+        """A k3s2p1 dense conv on the graph input, under ``stem_s2d`` (the
+        input's height is checked at run time). Only k3 stems: the JAX
+        engine never rewrites the k7 ResNet stem."""
+        a = node.attrs
+        return (self._policy.stem_s2d and node.op == "conv"
+                and self.model.graph[node.inputs[0]].op == "input"
+                and a["kernel"] == (3, 3) and a["stride"] == (2, 2)
+                and a["padding"] == (1, 1) and a["groups"] == 1 and a["dilation"] == (1, 1))
+
+    def _route(self, node, layer, is_stem: bool) -> Acc:
+        """The exact int8 product of a lowered layer that no kernel takes,
+        by the JAX engine's policy order, as ``xq -> int32 acc``; records
+        its product in ``products``."""
+        name, zp, qw = node.name, layer.in_zp, layer.qweight
+        products = self._low.products
+        if node.op == "linear":
+            prod = products[name] = self._product(name, "w", qw, node)
+            return lambda xq: int8_linear(xq, prod)
+        a = node.attrs
+        if is_stem:
+            # k3s2p1 over C channels == k2s1 VALID over 4C (s2d), exact
+            node_s = node.replace(attrs={**a, "kernel": (2, 2), "stride": (1, 1),
+                                         "padding": (0, 0), "in_ch": 4 * a["in_ch"]})
+            prod_s = self._product(name, "s2d", _s2d_weights(qw), node_s)
+            plain = self._route_dense(node, layer)
+
+            def s2d(xq):
+                if xq.shape[1] % 2:
+                    return plain(xq)
+                return int8_conv(_space_to_depth2(xq, zp, pad=1), node_s, prod_s, zp)
+
+            products[name] = prod_s
+            return s2d
+        pol = self._policy
+        if (a["groups"] > 1 and a["groups"] == a["in_ch"] == qw.shape[0]
+                and a["in_ch"] <= pol.dw_dense_max_ch):
+            # depthwise as a dense conv with the taps on the diagonal
+            node_d = node.replace(attrs={**a, "groups": 1})
+            prod_d = self._product(name, "dense", _dense_diag_weights(qw), node_d)
+            grouped = self._route_dense(node, layer)
+            max_h = pol.dw_dense_max_h
+
+            def dense(xq):
+                if xq.shape[1] > max_h:
+                    return grouped(xq)
+                return int8_conv(xq, node_d, prod_d, zp)
+
+            products[name] = prod_d
+            return dense
+        return self._route_dense(node, layer)
+
+    def _route_dense(self, node, layer) -> Acc:
+        """chpad, then k3_matmul, then b2s, then :func:`int8_conv`."""
+        name, zp, qw = node.name, layer.in_zp, layer.qweight
+        a = node.attrs
+        cin = a["in_ch"]
+        cpad = _chpad_target(cin, a["kernel"], a["groups"]) if self.chpad_k3 else 0
+        variant = "w"
+        if cpad:
+            # exact: the padded channels (zp) meet zero weight rows
+            qw = np.concatenate(
+                [qw, np.zeros((qw.shape[0], cpad - cin) + qw.shape[2:], np.int8)], axis=1)
+            node = node.replace(attrs={**a, "in_ch": cpad})
+            a, variant = node.attrs, f"chpad{cpad}"
+        dil = tuple(a.get("dilation", (1, 1)))
+        k3 = a["kernel"] == (3, 3) and a["groups"] == 1 and (
+            (self.k3_matmul in ("shift9", "im2col") and a["in_ch"] >= self.k3_matmul_min_ch)
+            or (self.k3_matmul == "auto" and dil != (1, 1) and a["in_ch"] >= 256))
+        if k3:
+            form = "im2col" if self.k3_matmul == "im2col" else "shift9"
+            prod = self._product(name, variant, qw, node, form)
+            fn = int8_conv_im2col if form == "im2col" else int8_conv_shift9
+
+            def route(xq):
+                return fn(xq, node, prod, zp)
+        else:
+            prod = self._product(name, variant, qw, node)
+            min_h = self.b2s_min_h
+            prod_b = self._product(name, variant, qw, node, "b2s") if min_h else None
+
+            def route(xq):
+                if (min_h and xq.shape[0] > 1 and xq.shape[1] >= min_h
+                        and b2s_applicable(node, xq.shape[1])):
+                    return int8_conv_b2s(xq, node, prod_b, zp)
+                return int8_conv(xq, node, prod, zp)
+
+        self._low.products[name] = prod
+        if not cpad:
+            return route
+        return lambda xq: route(F.pad(xq, (0, cpad - cin), value=zp))
 
     def _build_block(self, node, unfused: Step) -> Step:
         """K3 for a fusable block when its input is int8 and the block fits
@@ -457,7 +776,7 @@ class Int8FusedNet(nn.Module):
         E = Le.qweight.shape[0]
         C2 = Lp.qweight.shape[0]
         C = Le.qweight.shape[1]
-        op = kernels.pack_fused_block(
+        op = self._pack((node.name, "k3"), lambda: kernels.pack_fused_block(
             Le.qweight.reshape(E, -1).T,
             np.asarray(Le.in_scale * Le.w_scale, np.float32), self._bias(Le), Le.wsum,
             Ld.qweight[:, 0].reshape(E, 9).T,
@@ -469,8 +788,8 @@ class Int8FusedNet(nn.Module):
             act1_hi=info["act1_hi"], act2_hi=info["act2_hi"],
             res_grid=info["res"], p_grid=info["p_grid"], out_grid=info["out_grid"],
             device=self.device,
-        )
-        self.kernel_sites.append((node.name, "fused_block_int8", op))
+        ))
+        self._low.kernel_sites.append((node.name, "fused_block_int8", op))
         run = self._run["fused_block_int8"]
         xname, final, og = info["x"], info["final"], info["out_grid"]
         skip = list(info["skip"]) + [final]
@@ -650,7 +969,7 @@ class Int8FusedNet(nn.Module):
 
     def _site(self, name: str, kernel: str, op) -> None:
         if name not in self._fused_away:
-            self.kernel_sites.append((name, kernel, op))
+            self._low.kernel_sites.append((name, kernel, op))
 
     # -- runtime helpers ----------------------------------------------------
     def _getter(self, src: str, grid: Grid) -> Callable[[Dict[str, Any]], torch.Tensor]:
@@ -673,12 +992,15 @@ class Int8FusedNet(nn.Module):
         else:
             env[name] = QTensor(_quantize_f32(out_f32, sp[0], sp[1]), sp[0], sp[1])
 
-    def forward(self, x: torch.Tensor):
-        """``x``: f32 NHWC images on the module's device -> f32 logits."""
+    def forward(self, x: torch.Tensor, per_device_batch: Optional[int] = None):
+        """``x``: f32 NHWC images on the module's device -> f32 logits.
+        ``"auto"`` options resolve against ``per_device_batch``, else the
+        module's, else ``x``'s batch."""
+        low = self._use(self.lowering(per_device_batch or self.per_device_batch or x.shape[0]))
         env: Dict[str, Any] = {self.input_name: x}
         done: set = set()
         with highest_precision():
-            for name, step in self._steps:
+            for name, step in low.steps:
                 if name not in done:
                     step(env, done)
         outs = []
@@ -686,3 +1008,16 @@ class Int8FusedNet(nn.Module):
             v = env[o]
             outs.append(v.dequant() if isinstance(v, QTensor) else v)
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def execute_int8_fused(model: Int8Model, params_f32, x: torch.Tensor, device=None,
+                       **options):
+    """The JAX package's ``execute_int8_fused`` by name: builds an
+    :class:`Int8FusedNet` with ``options`` (its keyword options:
+    ``use_kernels``, the JAX engine's ``use_pallas``, ``fuse_blocks``,
+    ``stem_s2d``, ``dw_dense_max_ch``, ``dw_dense_max_h``, ``b2s_min_h``,
+    ``k3_matmul``, ``k3_matmul_min_ch``, ``chpad_k3``,
+    ``per_device_batch``) and runs ``x`` through it. Build the module once
+    to run many batches."""
+    with torch.no_grad():
+        return Int8FusedNet(model, device=device, params_f32=params_f32, **options)(x)

@@ -40,9 +40,6 @@ def _replica(graph, params, engine, device, act_ranges, bits_act, int8_model):
     if engine == "fused":
         from dfq_tpu_torch.engine import Int8FusedNet
 
-        # the JAX package resolves its XLA policies (auto_config) with the
-        # per-device batch here; they are bit-exact rewrites the port has
-        # not ported, so the engine runs as it is and the logits are the same
         return Int8FusedNet(int8_model, device=device, params_f32=params)
     sim_params = params_to(params, device)
     return lambda x: execute(graph, sim_params, x, act_ranges=act_ranges or {},
@@ -78,11 +75,17 @@ def make_sharded_forward(
 
     def run(x) -> Sharded:
         xs = x if isinstance(x, Sharded) else shard_batch(mesh, x)
+        # the fused engine resolves its batch-dependent policy (auto_config)
+        # with the PER-DEVICE batch, as the JAX package does: global / shards
+        kw = {}
+        if engine == "fused":
+            n = len(xs.shards)
+            kw["per_device_batch"] = max(sum(s.shape[0] for s in xs.shards) // n, 1)
         outs = []
         with torch.no_grad():
             for shard, d in zip(xs.shards, xs.devices):
                 with on_device(d):
-                    outs.append(replicas[d](shard))
+                    outs.append(replicas[d](shard, **kw))
         return Sharded(outs, xs.devices)
 
     return run

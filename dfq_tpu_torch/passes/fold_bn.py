@@ -71,3 +71,8 @@ def fold_batchnorm(
         new_nodes.append(node)
     return Graph(new_nodes, graph.outputs), params
 
+
+
+def is_stat_bn(params: Dict[str, Dict[str, Any]], name: str) -> bool:
+    """True if node ``name`` is a folded BN carrying data-free stats."""
+    return "stat_std" in params.get(name, {})

@@ -16,6 +16,8 @@ Rounding is round-half-to-even in numpy and torch alike.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -24,6 +26,23 @@ from dfq_tpu_torch.ops.rounding import f32, fma_f32, recip_xla
 
 def _is_torch(*xs) -> bool:
     return any(isinstance(x, torch.Tensor) for x in xs)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSpec:
+    """Static quantization spec for one tensor site."""
+
+    bits: int = 8
+    symmetric: bool = False
+    per_channel: bool = False  # weights only; axis 0 = output channels
+
+    @property
+    def qmin(self) -> int:
+        return -(2 ** (self.bits - 1)) if self.symmetric else 0
+
+    @property
+    def qmax(self) -> int:
+        return (2 ** (self.bits - 1)) - 1 if self.symmetric else (2**self.bits) - 1
 
 
 def quant_params(min_value, max_value, bits: int = 8, symmetric: bool = False):
@@ -107,13 +126,17 @@ def fake_quant_np(x, min_value, max_value, bits: int = 8, symmetric: bool = Fals
     return (q * np.float32(scale) + offset).astype(np.float32)
 
 
-def fake_quant_per_channel(x, bits: int = 8, symmetric: bool = False):
-    """Per-output-channel (axis 0) quantize-dequantize, numpy or torch."""
+def _per_channel_minmax(x):
+    """Per-output-channel (axis 0) min and max, numpy or torch."""
     flat = x.reshape(x.shape[0], -1)
     if _is_torch(x):
-        mn, mx = flat.amin(dim=-1), flat.amax(dim=-1)
-    else:
-        mn, mx = flat.min(axis=-1), flat.max(axis=-1)
+        return flat.amin(dim=-1), flat.amax(dim=-1)
+    return flat.min(axis=-1), flat.max(axis=-1)
+
+
+def fake_quant_per_channel(x, bits: int = 8, symmetric: bool = False):
+    """Per-output-channel (axis 0) quantize-dequantize, numpy or torch."""
+    mn, mx = _per_channel_minmax(x)
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
     scale, offset, qmin, qmax = quant_params(mn, mx, bits, symmetric)
     scale = scale.reshape(shape)
@@ -139,3 +162,23 @@ def dequantize_int(q, scale, zero_point):
     if _is_torch(q):
         return (q.to(torch.float32) - zero_point) * scale
     return (q.astype(np.float32) - zero_point) * scale
+
+
+def affine_qparams_from_range(min_value: float, max_value: float, bits: int = 8):
+    """(scale, zero_point) for int8 storage of an asymmetric range: the
+    zero point is the integer real 0 maps nearest to, in the unsigned
+    convention ``[0, 2^b - 1]`` (the engines shift it to int8 by -128)."""
+    scale, offset, qmin, qmax = quant_params(
+        np.float32(min_value), np.float32(max_value), bits, symmetric=False
+    )
+    zero_point = int(np.round(-offset / scale))
+    zero_point = int(np.clip(zero_point, qmin, qmax))
+    return float(scale), zero_point
+
+
+def symmetric_scale_from_range(min_value, max_value, bits: int = 8):
+    """Per-tensor or per-channel symmetric scale, ``max(|min|, |max|) /
+    (2^(b-1) - 1)`` (the reciprocal of ncnn's ``128 / max(|min|,|max|)``
+    with qmax near 128)."""
+    scale, _, _, _ = quant_params(min_value, max_value, bits, symmetric=True)
+    return scale

@@ -166,6 +166,54 @@ def test_moments_equal():
         np.testing.assert_allclose(mtt, mjj, rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("bits,symmetric,per_channel", [(8, False, False), (8, True, True),
+                                                         (4, True, False), (6, False, True)])
+def test_qspec_equal(bits, symmetric, per_channel):
+    import dataclasses
+
+    import dfq_tpu_torch
+
+    t = dfq_tpu_torch.QSpec(bits, symmetric, per_channel)
+    j = jcore.QSpec(bits, symmetric, per_channel)
+    assert (t.qmin, t.qmax) == (j.qmin, j.qmax)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dfq_tpu_torch.fake_quant is tcore.fake_quant
+    assert dfq_tpu_torch.quant_params is tcore.quant_params
+
+
+def test_range_qparams_equal():
+    rng = np.random.default_rng(7)
+    for lo, hi in [(-1.0, 1.0), (0.0, 6.0), (-0.3, 5.7), (-2.5e-3, 1e-3), (0.0, 0.0),
+                   (-7.0, -1.0), (1.0, 3.0)]:
+        for bits in (4, 6, 8):
+            assert tcore.affine_qparams_from_range(lo, hi, bits) == \
+                jcore.affine_qparams_from_range(lo, hi, bits)
+            assert tcore.symmetric_scale_from_range(lo, hi, bits) == \
+                jcore.symmetric_scale_from_range(lo, hi, bits)
+    mn, mx = rng.normal(0, 1, 16) - 2, rng.normal(0, 1, 16) + 2
+    np.testing.assert_array_equal(tcore.symmetric_scale_from_range(mn, mx),
+                                  jcore.symmetric_scale_from_range(mn, mx))
+    w = rng.normal(0, 1, (12, 3, 3, 3)).astype(np.float32)
+    for got in (tcore._per_channel_minmax(w),
+                [v.numpy() for v in tcore._per_channel_minmax(torch.from_numpy(w))]):
+        for g, j in zip(got, jcore._per_channel_minmax(w, np)):
+            np.testing.assert_array_equal(g, j)
+
+
+def test_is_stat_bn_equal():
+    from dfq_tpu.passes.fold_bn import fold_batchnorm as j_fold, is_stat_bn as j_is
+    from dfq_tpu_torch.passes.fold_bn import fold_batchnorm as t_fold, is_stat_bn as t_is
+
+    g = j_mobilenet_v2()
+    params = jcommon.init_params(g, seed=0, bn_stats="random")
+    gj, pj = j_fold(g, params)
+    gt, pt = t_fold(t_mobilenet_v2(), tcommon.init_params(t_mobilenet_v2(), seed=0,
+                                                          bn_stats="random"))
+    names = [n.name for n in gj] + ["missing"]
+    assert [t_is(pt, n) for n in names] == [j_is(pj, n) for n in names]
+    assert sum(t_is(pt, n) for n in names) == sum(1 for n in gt if n.op == "bn") > 0
+
+
 def test_import_isolation():
     """The port imports neither jax nor dfq_tpu: with both blocked, its
     packages import and leave neither name in sys.modules."""
@@ -197,6 +245,9 @@ def test_import_isolation():
         "import dfq_tpu_torch.parallel, dfq_tpu_torch.parallel.multihost\n"
         "import dfq_tpu_torch.detection.losses, dfq_tpu_torch.detection.transforms\n"
         "import dfq_tpu_torch.data.seg_transforms\n"
+        "import dfq_tpu_torch.engine.autotune, dfq_tpu_torch.utils\n"
+        "import dfq_tpu_torch.utils.profiling, dfq_tpu_torch.utils.visualize\n"
+        "from dfq_tpu_torch import QSpec, fake_quant, quant_params\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dfq_tpu')]\n"
         "assert not bad, bad\n"
         "print('isolated')\n"

@@ -16,7 +16,10 @@ classifier, K2 and K3 at the detection sites, the dilated ASPP, decoder
 and unpadded depthwise convs), calibration's distillation loss and
 gradient and ``calibrate_ranges`` on the card against the CPU, the
 sharded fused forward at 3 and 4 shards on one card, and each wrapper
-launching on its input's device and stream.
+launching on its input's device and stream, and the fused engine's conv
+rewrites (shift9, im2col, batch-to-space, channel padding, dense-diagonal
+depthwise, the s2d stem) bit-equal to ``int8_conv`` at SSD-Lite's and
+DeepLab's shapes.
 """
 
 import numpy as np
@@ -447,6 +450,64 @@ def test_int8_conv_unpadded_depthwise_exact_on_cuda(dev, c, dilation, stride):
     want = F.conv2d(x.permute(0, 3, 1, 2).double(), torch.from_numpy(qw).to(dev).double(),
                     stride=stride, dilation=dilation, groups=c).permute(0, 2, 3, 1)
     _equal(int8_conv(x, node, prod, -7), want.to(torch.int32))
+
+
+# the fused engine's conv rewrites at SSD-Lite's and DeepLab's shapes:
+# (cin, cout, k, stride, dilation, groups, batch, map)
+_REWRITE_SITES = {
+    "ssd_stem": (3, 32, 3, 2, 1, 1, 2, 300),
+    "ssd_dw32": (32, 32, 3, 1, 1, 32, 2, 150),
+    "ssd_dw96_s2": (96, 96, 3, 2, 1, 96, 2, 150),
+    "ssd_extra_s2": (256, 512, 3, 2, 1, 1, 2, 10),
+    "deeplab_stem": (3, 32, 3, 2, 1, 1, 2, 513),
+    "deeplab_aspp_d6": (320, 256, 3, 1, 6, 1, 2, 33),
+    "deeplab_aspp_d12": (320, 256, 3, 1, 12, 1, 2, 33),
+    "deeplab_aspp_d18": (320, 256, 3, 1, 18, 1, 2, 33),
+    "deeplab_decoder": (304, 256, 3, 1, 1, 1, 2, 129),
+}
+
+
+@pytest.mark.parametrize("site", sorted(_REWRITE_SITES))
+def test_conv_rewrites_equal_int8_conv_on_cuda(dev, site):
+    """shift9, im2col and the batch-to-space fold, and the policies'
+    weight rewrites (channel padding, dense-diagonal depthwise, the s2d
+    stem), bit-equal to :func:`int8_conv`'s default route on the card."""
+    import torch.nn.functional as F
+
+    import dfq_tpu_torch.engine.int8 as ti8
+    import dfq_tpu_torch.engine.int8_fused as tf
+
+    cin, cout, k, stride, dilation, groups, n, hw = _REWRITE_SITES[site]
+    rng = np.random.default_rng(cin + hw)
+    node = _node(cin, cout, k, stride, dilation, groups)
+    qw = rng.integers(-128, 128, (cout, cin // groups, k, k)).astype(np.int8)
+    x = _t(rng.integers(-128, 128, (n, hw, hw, cin)).astype(np.int8), dev)
+    zp = -19
+    want = ti8.int8_conv(x, node, ti8.pack_int8_product(qw, node, dev), zp)
+    forms = {"b2s": ti8.int8_conv_b2s} if ti8.b2s_applicable(node, hw) else {}
+    if groups == 1:
+        forms.update(shift9=ti8.int8_conv_shift9, im2col=ti8.int8_conv_im2col)
+    for form, fn in forms.items():
+        _equal(fn(x, node, ti8.pack_int8_product(qw, node, dev, form), zp), want)
+    cpad = tf._chpad_target(cin, (k, k), groups) or (384 if cin == 304 else 0)
+    if cpad:
+        node_p = node.replace(attrs={**node.attrs, "in_ch": cpad})
+        qw_p = np.concatenate([qw, np.zeros((cout, cpad - cin, k, k), np.int8)], axis=1)
+        x_p = F.pad(x, (0, cpad - cin), value=zp)
+        for form in ("conv", "shift9", "im2col"):
+            fn = {"conv": ti8.int8_conv, "shift9": ti8.int8_conv_shift9,
+                  "im2col": ti8.int8_conv_im2col}[form]
+            _equal(fn(x_p, node_p, ti8.pack_int8_product(qw_p, node_p, dev, form), zp), want)
+    if groups > 1:
+        node_d = node.replace(attrs={**node.attrs, "groups": 1})
+        prod_d = ti8.pack_int8_product(tf._dense_diag_weights(qw), node_d, dev)
+        _equal(ti8.int8_conv(x, node_d, prod_d, zp), want)
+    if cin == 3 and hw % 2 == 0:
+        attrs = {**node.attrs, "kernel": (2, 2), "stride": (1, 1), "padding": (0, 0),
+                 "in_ch": 12}
+        node_s = node.replace(attrs=attrs)
+        prod_s = ti8.pack_int8_product(tf._s2d_weights(qw), node_s, dev)
+        _equal(ti8.int8_conv(tf._space_to_depth2(x, zp, pad=1), node_s, prod_s, zp), want)
 
 
 # -- calibration (ZeroQ) on the card against the CPU --------------------------
