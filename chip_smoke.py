@@ -70,16 +70,22 @@ Phases, in order; any failure exits non-zero:
    128; DeepLab's fused forward at batch 4 and 8, its baseline and
    simulator at 4; the peak device memory of each of these forwards; every
    kernel at every SSD-Lite site (batch 8 and 128) and DeepLab site
-   (batch 4; its classifier also at 8 and 128) beside its bound, its plain version and a yardstick (K1's
-   ``dp4a`` sites, whose N is not a multiple of 8, beside ``torch._int_mm``
-   on weights zero-padded to the next multiple of 8);
+   (batch 4; its classifier also at 8 and 128) beside its bound, its plain
+   version and a yardstick (``torch._int_mm`` on the packed weight, N
+   zero-padded to a multiple of 8, and M <= 16 padded past 16 with zp
+   rows); and a line a K1 site whose shape only the ``dp4a`` variant
+   took before the tensor-core variants took N not a multiple of 8 and
+   long K (``former_dp4a``: the class heads at b8 and b128, the
+   classifier at b4 and b8): its device ms beside the ``dp4a`` variant's
+   on the same rows (the same outputs), the bound and padded
+   ``torch._int_mm``;
 12. SSD-Lite 300x300 (21 classes, 3000 priors), random weights from the
    seed, the flagship config with the detection flags: 30 / 11 / 12
-   kernel sites, K1 at 24 through its ``mma`` variant and at the 6 class
-   heads (N = 126) through ``dp4a``, K2 ``strip``, K3 ``mma``; every
-   kernel equal to its plain version at every site at batch 8 and 3 and,
-   at each kernel's largest sites and every ``dp4a`` site, 128; the batch-8
-   forward bit-equal to the plain-kernel net, no plain version run through
+   kernel sites, K1 at all 30 through its resident ``mma`` variant (the 6
+   class heads, N = 126, on weights padded to 128), K2 ``strip``, K3
+   ``mma``; every kernel equal to its plain version at every site at batch
+   8 and 3 and, at each kernel's largest sites and every class head, 128;
+   the batch-8 forward bit-equal to the plain-kernel net, no plain version run through
    a wrapper; the baseline engine on the card equal to itself on the CPU
    within ``ENGINE_RTOL`` of the largest output, confidences summing to 1;
    the fused and baseline engines within the JAX suite's mean bounds of
@@ -88,9 +94,10 @@ Phases, in order; any failure exits non-zero:
    fused --device-nms`` and ``--engine int8 --save-artifact`` in-process,
    the reloaded artifact bit-equal;
 13. DeepLab-v3+ MobileNetV2 513x513 (output stride 16, 21 classes), batch
-   4, the same weights and config: 38 K1 sites (37 ``mma``, the classifier
-   ``dp4a``), K2 and K3 never; every site equal to its plain version at
-   batch 4 and 3 (the classifier also at 8 and 128); the forward
+   4, the same weights and config: 38 K1 sites (all ``mma``, the
+   classifier's N = 21 padded to 24), K2 and K3 never; every site equal
+   to its plain version at batch 4 and 3 (the classifier also at 8 and
+   128); the forward
    bit-equal to the plain-kernel net, the per-pixel argmax taken on the
    card; the baseline engine on the card against the CPU as in 12, the
    two engines' argmax agreeing as the JAX suite holds it; ``run_seg
@@ -148,8 +155,12 @@ Phases, in order; any failure exits non-zero:
    the plain-kernel net with outputs of the expected shapes, the baseline
    engine on the card against the CPU within ``ENGINE_RTOL`` (DeepLab at
    1 image, the others at 2), phase 9's float64 check of every other int8
-   product at batch 2, the fused forward's median ms and peak memory, and
-   every kernel site's time beside its bound, plain version and yardstick;
+   product at batch 2, the fused forward's median ms and peak memory,
+   every kernel site's time beside its bound, plain version and yardstick,
+   and each former ``dp4a`` site (the K = 2048 convs of the DeepLab
+   backbones at b4 and b8, the SSD variants' class heads and AlexNet's
+   classifier at b8 and b128) as in 11. No forward of any phase launches
+   K1's ``dp4a`` variant (``k1_on_tensor_cores``);
 18. ``dfq_tpu_torch.parallel`` at full width on the one card (a mesh may
    name a device more than once): MobileNetV2 224x224 at b128 through
    ``make_sharded_forward`` and ``make_sharded_eval`` (fused engine) on
@@ -369,7 +380,7 @@ def work(kernel: str, op, shape, out_bytes: int):
     yardstick before and after a redesign."""
     if kernel == "matmul_int8_requant":
         M, K = shape
-        N = op.w.shape[0]
+        N = op.n_out  # not the packed weight's rows, padded to a multiple of 8
         return M * K + N * K + 12 * N + M * N * out_bytes, 2 * M * N * K
     if kernel == "dw3x3_int8_requant":
         n = int(np.prod(shape))
@@ -399,33 +410,39 @@ def fused_block_split_bound_ms(op, shape, int8_peak: float) -> float:
 
 # the shapes torch._int_mm takes on CUDA
 INT_MM_RULE = "torch._int_mm needs M > 16 and K, N multiples of 8"
+# the rows a K1 yardstick pads M <= 16 to (zp_in rows), past INT_MM_RULE's 16
+INT_MM_MIN_M = 24
 
 
 def library_call(kernel: str, op, x):
     """One PyTorch call computing the kernel's core, never used by the
-    port: the int8 product for K1 (with the weight's columns zero-padded
-    to the next multiple of 8 where N is not one: ``padded`` is then
-    True), the f32 depthwise MAC for K2. Returns ``(call, padded)``, or
-    ``(None, False)`` where there is none (K3) or the shape is outside
-    ``INT_MM_RULE``'s M and K."""
+    port: the int8 product for K1 (on the packed weight, whose columns are
+    zero-padded to the next multiple of 8 where N is not one, and with M
+    <= 16 padded to ``INT_MM_MIN_M`` rows of zp_in), the f32 depthwise MAC
+    for K2. Returns ``(call, padded)``: ``padded`` says what was padded
+    ("" for nothing); ``(None, "")`` where there is none (K3) or K is
+    outside ``INT_MM_RULE``."""
     import torch
     import torch.nn.functional as F
 
     if kernel == "matmul_int8_requant":
         M, K = x.shape
-        N = op.w.shape[0]
-        if M <= 16 or K % 8:
-            return None, False
-        n8 = -(-N // 8) * 8
-        w = op.w if n8 == N else F.pad(op.w, (0, 0, 0, n8 - N))
-        w_kn = w.t()  # column-major [K, N], cuBLASLt's layout
-        return (lambda: torch._int_mm(x, w_kn)), n8 != N
+        if K % 8:
+            return None, ""
+        padded = []
+        if op.w.shape[0] != op.n_out:
+            padded.append(f"N {op.n_out} -> {op.w.shape[0]}")
+        if M <= 16:
+            x = F.pad(x, (0, 0, 0, INT_MM_MIN_M - M), value=op.zp_in)
+            padded.append(f"M {M} -> {INT_MM_MIN_M} (zp rows)")
+        w_kn = op.w.t()  # column-major [K, Np], cuBLASLt's layout
+        return (lambda: torch._int_mm(x, w_kn)), ", ".join(padded)
     if kernel == "dw3x3_int8_requant":
         C = x.shape[-1]
         xf = x.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
         wf = op.taps.t().reshape(C, 1, 3, 3).float().contiguous()
-        return (lambda: F.conv2d(xf, wf, padding=1, groups=C)), False
-    return None, False
+        return (lambda: F.conv2d(xf, wf, padding=1, groups=C)), ""
+    return None, ""
 
 
 def ptxas_report(log: Path):
@@ -549,13 +566,65 @@ def print_sites(sites) -> None:
     for s in sites:
         lib = ("none" if s["library_ms"] is None
                else f"{s['library_ms']:.4f} / {s['library_device_ms']:.4f}"
-               + (" (N padded to a multiple of 8)" if s["library_padded"] else ""))
+               + (f" (padded: {s['library_padded']})" if s["library_padded"] else ""))
         split = s.get("split_bound_ms")
         print(f"  b{s['batch']} {s['node']} {tuple(s['shape'])} | {s['ms']:.4f} | "
               f"{s['device_ms']:.4f} | {s['bound_ms']:.4f} ({s['bound_by']}) | {lib} | "
               f"{s['device_ms'] / s['bound_ms']:.1f}x"
               + ("" if split is None else f" | {split:.4f}, {s['device_ms'] / split:.1f}x"),
               flush=True)
+
+
+def former_dp4a(ck, op) -> bool:
+    """A K1 site whose shape only the dp4a variant took before the
+    tensor-core variants took it: N not a multiple of 8, or a K whose
+    128-row x tile does not fit shared memory (the streamed variant's)."""
+    return op.n_out % 8 != 0 or ck.MM_TILE_M * ck.matmul_pitch(op.w.shape[1]) > ck.SMEM_BUDGET
+
+
+def time_former_dp4a(ck, wrappers, peaks, path: str, batch: int, node: str, op, x,
+                     reps: int = 10, rounds: int = 3) -> dict:
+    """One former dp4a site: the kernel's device ms (graph replay) beside
+    the dp4a variant's on the same rows, the "before" (x copied 4 bytes
+    off its 16-byte boundary, which only that variant takes; its output
+    must equal the kernel's), the bound and padded ``torch._int_mm``."""
+    import torch
+
+    wrap, _ = wrappers["matmul_int8_requant"]
+    mem_bw, int8_peak = peaks
+    ck.reset_counts()
+    out = wrap(x, op)
+    variant = next(v for v, n in ck.VARIANTS["matmul_int8_requant"].items() if n)
+    buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=x.device)
+    x_off = buf[4:4 + x.numel()].view_as(x)
+    x_off.copy_(x)
+    ck.reset_counts()
+    before = wrap(x_off, op)
+    torch.cuda.synchronize()
+    if x_off.data_ptr() % 16 != 4 or ck.VARIANTS["matmul_int8_requant"]["dp4a"] != 1:
+        raise AssertionError(f"{path} {node}: the offset input did not take dp4a")
+    if variant == "dp4a" or not torch.equal(out, before):
+        raise AssertionError(f"{path} {node}: {variant} vs dp4a differ")
+    nbytes, nops = work("matmul_int8_requant", op, tuple(x.shape), out.element_size())
+    bytes_ms, ops_ms = nbytes / mem_bw * 1e3, nops / int8_peak * 1e3
+    lib, padded = library_call("matmul_int8_requant", op, x)
+    t = {"path": path, "batch": batch, "node": node, "shape": [*x.shape, op.n_out],
+         "variant": variant,
+         "device_ms": graph_ms(lambda: wrap(x, op), reps, rounds),
+         "dp4a_device_ms": graph_ms(lambda: wrap(x_off, op), reps, rounds),
+         "bound_ms": max(bytes_ms, ops_ms),
+         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+         "library_device_ms": None if lib is None else graph_ms(lib, reps, rounds),
+         "library_padded": padded}
+    lib_s = ("none" if lib is None else f"{t['library_device_ms']:.4f}"
+             + (f" (padded: {padded})" if padded else ""))
+    print(f"former dp4a site {path} b{batch} {node} (M, K, N) {tuple(t['shape'])}: {variant} "
+          f"{t['device_ms']:.4f} device ms, dp4a "
+          f"{t['dp4a_device_ms']:.4f} ({t['dp4a_device_ms'] / t['device_ms']:.1f}x), bound "
+          f"{t['bound_ms']:.4f} ({t['bound_by']}; {t['device_ms'] / t['bound_ms']:.1f}x), "
+          f"padded _int_mm {lib_s}", flush=True)
+    del buf, x_off, out, before
+    return t
 
 
 def forward_peak(fn, x):
@@ -643,6 +712,7 @@ def phase_resnet(ck, images) -> dict:
         logits = net(x8)
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
+        k1_on_tensor_cores("ResNet-18", ck.VARIANTS)
         ref = ref_net(x8)
         lg_base = base(x8).cpu().numpy()
     if launches != {"matmul_int8_requant": 1, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
@@ -763,8 +833,8 @@ def phase_exact_products(paths, gen) -> dict:
 
 def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
     """Every site at each of ``batches``; at ``big_batch`` the K1 site with
-    the most rows, every K1 site whose N is not a multiple of 8 (the
-    ``dp4a`` variant), the largest K2 site, and K3's first and last."""
+    the most rows, every K1 site whose N is not a multiple of 8 (stored at
+    any byte width), the largest K2 site, and K3's first and last."""
     by = {k: [s for s in net.kernel_sites if s[1] == k] for k in ck.LAUNCHES}
     shapes1 = site_inputs(graph, 1, size)
 
@@ -778,7 +848,7 @@ def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
     if by["matmul_int8_requant"]:
         k1 = by["matmul_int8_requant"]
         big.append(max(k1, key=rows))
-        big += [s for s in k1 if s[2].w.shape[0] % 8 and s not in big]
+        big += [s for s in k1 if s[2].n_out % 8 and s not in big]
     if by["dw3x3_int8_requant"]:
         big.append(max(by["dw3x3_int8_requant"], key=elems))
     if by["fused_block_int8"]:
@@ -786,16 +856,25 @@ def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
     return [(s, b) for b in batches for s in net.kernel_sites] + [(s, big_batch) for s in big]
 
 
+def k1_on_tensor_cores(label: str, variants: dict) -> None:
+    """Raise if a forward launched K1's dp4a variant: every K1 site of every
+    path takes the tensor cores (the resident or the streamed variant)."""
+    if variants["matmul_int8_requant"]["dp4a"]:
+        raise AssertionError(f"{label}: K1 launched its dp4a variant: {variants}")
+
+
 def launch_forward(ck, net, x):
     """One forward of ``net`` with the counts reset just before it:
-    ``(output, launches, variants)``."""
+    ``(output, launches, variants)``; K1 on the tensor cores only."""
     import torch
 
     with torch.no_grad():
         ck.reset_counts()
         out = net(x)
         torch.cuda.synchronize()
-    return out, dict(ck.LAUNCHES), {k: dict(v) for k, v in ck.VARIANTS.items()}
+    variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
+    k1_on_tensor_cores(type(net).__name__, variants)
+    return out, dict(ck.LAUNCHES), variants
 
 
 def equal_outputs(label, got, want) -> None:
@@ -861,7 +940,7 @@ def phase_ssd(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     (conf, loc), launches, variants = launch_forward(ck, net, x8)
     if launches != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11, "fused_block_int8": 12}:
         raise AssertionError(f"SSD-Lite launches {launches}")
-    if variants != {"matmul_int8_requant": {"mma": 24, "dp4a": 6},
+    if variants != {"matmul_int8_requant": {"mma": 30, "stream": 0, "dp4a": 0},
                     "dw3x3_int8_requant": {"strip": 11, "general": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"SSD-Lite kernel variants {variants}")
@@ -956,7 +1035,7 @@ def phase_deeplab(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     if kinds != {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
         raise AssertionError(f"DeepLab kernel sites {kinds}")
     checks = kernel_site_checks(net, graph, SEG_SIZE, (SEG_BATCH, ODD_BATCH), BIG_BATCH, ck)
-    checks += [(s, BATCH) for s, b in checks if b == BIG_BATCH and s[2].w.shape[0] % 8]
+    checks += [(s, BATCH) for s, b in checks if b == BIG_BATCH and s[2].n_out % 8]
     hold_sites(graph, SEG_SIZE, checks, wrappers, max_err, gen)
     print(f"DeepLab: kernels == plain at all {len(net.kernel_sites)} sites at batch {SEG_BATCH} "
           f"and {ODD_BATCH}, and at {sorted({(c[0][0], c[1]) for c in checks if c[1] > 4})}",
@@ -969,7 +1048,7 @@ def phase_deeplab(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     out, launches, variants = launch_forward(ck, net, x4)
     if launches != {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
         raise AssertionError(f"DeepLab launches {launches}")
-    if variants["matmul_int8_requant"] != {"mma": 37, "dp4a": 1}:
+    if variants["matmul_int8_requant"] != {"mma": 38, "stream": 0, "dp4a": 0}:
         raise AssertionError(f"DeepLab kernel variants {variants}")
     if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
         raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
@@ -1183,7 +1262,7 @@ def phase_calibration(ck, wrappers, max_err: dict, gen, images) -> dict:
     if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
                     "fused_block_int8": 12}:
         raise AssertionError(f"calibrated path launches {launches}")
-    if variants != {"matmul_int8_requant": {"mma": 11, "dp4a": 0},
+    if variants != {"matmul_int8_requant": {"mma": 11, "stream": 0, "dp4a": 0},
                     "dw3x3_int8_requant": {"strip": 1, "general": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"calibrated path kernel variants {variants}")
@@ -1511,12 +1590,13 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
     bit-equal to its plain version at the model's batch and at batch 3, the
     fused forward bit-equal to its plain-kernel net, the baseline engine on
     the card against the CPU, every other int8 product against float64 at
-    batch 2, the forward's time and peak memory and every site's time."""
+    batch 2, the forward's time and peak memory, every site's time, and
+    the former dp4a sites beside the dp4a variant at two batches."""
     import torch
 
     from dfq_tpu_torch.engine import Int8FusedNet, Int8Net
 
-    result, sites = {}, []
+    result, sites, former = {}, [], []
     for name, (_, size, batch, det, data_free, jax_sites) in ZOO.items():
         t0 = time.perf_counter()
         prep, model, residual, images = zoo_model(name)
@@ -1565,6 +1645,12 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
             t.update(path=name, batch=batch, node=node)
             sites.append(t)
             del xs
+        for b in (batch, BATCH if size == SEG_SIZE else BIG_BATCH):
+            for node, kernel, op in net.kernel_sites:
+                if kernel == "matmul_int8_requant" and former_dp4a(ck, op):
+                    xs = site_input(graph, size, kernel, node, b, gen)
+                    former.append(time_former_dp4a(ck, wrappers, peaks, name, b, node, op, xs))
+                    del xs
         mine = [t for t in sites if t["path"] == name]
         by_kernel = {k: {"sites": len(ks), "device_ms": sum(t["device_ms"] for t in ks),
                          "ms": sum(t["ms"] for t in ks), "bound_ms": sum(t["bound_ms"] for t in ks),
@@ -1586,7 +1672,7 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
         del prep, model, residual, net, ref_net, base, out, outs, x
         torch.cuda.empty_cache()
     print_sites(sites)
-    return {"models": result, "sites": sites}
+    return {"models": result, "sites": sites, "former_dp4a": former}
 
 
 # phase 18: the global batch of the data-parallel forwards, the shard counts
@@ -1704,6 +1790,7 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
             torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
         variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
+        k1_on_tensor_cores(path, variants)
         n = mesh.size
         if launches != {k: v * n for k, v in per_shard.items()}:
             raise AssertionError(f"{path}: launches {launches} over {n} shards")
@@ -2242,7 +2329,7 @@ def main() -> int:
     if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
                     "fused_block_int8": 12}:
         raise AssertionError(f"main path launches {launches}")
-    if variants != {"matmul_int8_requant": {"mma": 11, "dp4a": 0},
+    if variants != {"matmul_int8_requant": {"mma": 11, "stream": 0, "dp4a": 0},
                     "dw3x3_int8_requant": {"strip": 1, "general": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"main path kernel variants {variants}")
@@ -2394,7 +2481,7 @@ def main() -> int:
                       "library_device_ms": None if lib is None else graph_ms(lib),
                       "bound_ms": max(bytes_ms, ops_ms),
                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
-        print(f"K1 at ResNet-18's fc, b{batch} {tuple(x.shape)} -> {fc_op.w.shape[0]}: "
+        print(f"K1 at ResNet-18's fc, b{batch} {tuple(x.shape)} -> {fc_op.n_out}: "
               f"{k1_fc[-1]}" + ("" if lib else f" (no library yardstick: {INT_MM_RULE})"),
               flush=True)
     detail["k1_resnet18_fc"] = k1_fc
@@ -2434,13 +2521,13 @@ def main() -> int:
               f"{nms_ms[batch]:.3f} ms", flush=True)
     detail["decode_nms_batch_ms"] = nms_ms
     new_sites = []
-    seg_dp4a = [s for s in seg["net"].kernel_sites if s[2].w.shape[0] % 8]
+    seg_former = [s for s in seg["net"].kernel_sites if former_dp4a(ck, s[2])]
     for path, sites_, pgraph, size, batches in (
             ("ssd_lite", ssd["net"].kernel_sites, ssd["model"].graph, SSD_SIZE,
              (BATCH, BIG_BATCH)),
             ("deeplab_mnv2", seg["net"].kernel_sites, seg["model"].graph, SEG_SIZE,
              (SEG_BATCH,)),
-            ("deeplab_mnv2", seg_dp4a, seg["model"].graph, SEG_SIZE, (BATCH, BIG_BATCH))):
+            ("deeplab_mnv2", seg_former, seg["model"].graph, SEG_SIZE, (BATCH, BIG_BATCH))):
         for batch in batches:
             for name, kernel, op in sites_:
                 x = site_input(pgraph, size, kernel, name, batch, gen)
@@ -2460,6 +2547,17 @@ def main() -> int:
                       f"bound {sum(t['bound_ms'] for t in ks):.4f}, plain "
                       f"{sum(t['plain_ms'] for t in ks):.3f}", flush=True)
     detail["sites_seg_det"] = new_sites
+    former = []
+    for path, net_, pgraph, size, batches in (
+            ("ssd_lite", ssd["net"], ssd["model"].graph, SSD_SIZE, (BATCH, BIG_BATCH)),
+            ("deeplab_mnv2", seg["net"], seg["model"].graph, SEG_SIZE, (SEG_BATCH, BATCH))):
+        for batch in batches:
+            for name, kernel, op in net_.kernel_sites:
+                if kernel == "matmul_int8_requant" and former_dp4a(ck, op):
+                    x = site_input(pgraph, size, kernel, name, batch, gen)
+                    former.append(time_former_dp4a(ck, wrappers, peaks, path, batch, name, op, x))
+                    del x
+    detail["former_dp4a"] = former
 
     # 14. calibration (its launch counts are read around its forward)
     calib = phase_calibration(ck, wrappers, max_err, gen, images)
@@ -2473,6 +2571,16 @@ def main() -> int:
     zoo = phase_zoo(ck, wrappers, max_err, gen, peaks)
     detail["zoo"] = zoo["models"]
     detail["sites_zoo"] = zoo["sites"]
+    detail["former_dp4a"] += zoo["former_dp4a"]
+    by_path = {}
+    for t in detail["former_dp4a"]:
+        by_path.setdefault((t["path"], t["batch"]), []).append(t)
+    for (path, batch), ts in by_path.items():
+        lib = [t["library_device_ms"] for t in ts]
+        print(f"former dp4a sites {path} b{batch} ({card}): {len(ts)} sites, device ms "
+              f"{sum(t['device_ms'] for t in ts):.4f}, dp4a {sum(t['dp4a_device_ms'] for t in ts):.4f}, "
+              f"bound {sum(t['bound_ms'] for t in ts):.4f}, padded _int_mm "
+              + (f"{sum(lib):.4f}" if None not in lib else "none"), flush=True)
 
     # 18. parallel/ (its launch counts are read around each sharded run)
     par = phase_parallel(ck, wrappers, max_err, gen,

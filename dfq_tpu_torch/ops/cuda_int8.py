@@ -21,7 +21,7 @@ Each kernel has, in this module:
   in :data:`PLAIN_CALLS`);
 - its launch plan, made here in Python and handed to the kernel, where
   the CPU tests reach it: which variant a shape takes (K1: tensor-core
-  ``mma`` or ``dp4a``; K2: ``strip`` or ``general``; K3: ``mma`` or
+  ``mma`` or ``stream``, or ``dp4a``; K2: ``strip`` or ``general``; K3: ``mma`` or
   ``general``; counted in :data:`VARIANTS`), tile and shared-memory
   layout, grid (:func:`matmul_plan`, :func:`dw3x3_plan`,
   :func:`fused_block_plan`);
@@ -62,7 +62,7 @@ from dfq_tpu_torch.ops.rounding import (
 LAUNCHES = {"matmul_int8_requant": 0, "dw3x3_int8_requant": 0, "fused_block_int8": 0}
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # launches by kernel variant, which a shape and its alignment alone decide
-VARIANTS = {"matmul_int8_requant": {"mma": 0, "dp4a": 0},
+VARIANTS = {"matmul_int8_requant": {"mma": 0, "stream": 0, "dp4a": 0},
             "dw3x3_int8_requant": {"strip": 0, "general": 0},
             "fused_block_int8": {"mma": 0, "general": 0}}
 _count_lock = threading.Lock()
@@ -173,7 +173,7 @@ def _check_operands(name: str, device, *operands) -> None:
 # ---------------------------------------------------------------------------
 # K1: int8 matmul + requant
 
-# the tensor-core variant of csrc/matmul_int8_requant.cu: rows of x per
+# the resident variant of csrc/matmul_int8_requant.cu: rows of x per
 # tile (its TM), the widest column tile and deepest ring it takes, and the
 # blocks per SM its __launch_bounds__ allow
 MM_TILE_M = 128
@@ -182,32 +182,47 @@ MM_MAX_STAGES = 8
 MM_BLOCKS_PER_SM = 3
 # bytes of x a block keeps in flight ahead of the tile it computes
 MM_INFLIGHT = 16384
+# the streamed variant: the widest column tile (its SNT n8 tiles of int32
+# accumulators a warp), the blocks per SM its __launch_bounds__ allow, and
+# its deepest ring of K slices
+MM_STREAM_BN = 64
+MM_STREAM_BLOCKS_PER_SM = 2
+MM_STREAM_MAX_STAGES = 4
+# the kernel's codes of the variants (MatmulArgs.variant)
+MM_VARIANTS = ("dp4a", "mma", "stream")
 
 
 @dataclasses.dataclass
 class MatmulRequant:
-    """Packed operands of one :func:`matmul_int8_requant` call site."""
+    """Packed operands of one :func:`matmul_int8_requant` call site. N is
+    padded to ``Np``, the next multiple of 8 (the tensor cores' column
+    tiles), with zero weight rows and zero ``scale``, ``bias`` and
+    ``wsum``, as the Pallas wrapper pads it; ``n_out`` is the real N."""
 
-    w: torch.Tensor  # [N, K] int8: the JAX [K, N] weight, transposed once
-    scale: torch.Tensor  # [N] f32: s_in * s_w
-    bias: torch.Tensor  # [N] f32
-    wsum: torch.Tensor  # [N] int32
+    w: torch.Tensor  # [Np, K] int8: the JAX [K, N] weight, transposed once
+    scale: torch.Tensor  # [Np] f32: s_in * s_w
+    bias: torch.Tensor  # [Np] f32
+    wsum: torch.Tensor  # [Np] int32
     zp_in: int
     inv_out: float  # f32(1.0 / s_out), the Pallas kernel's reciprocal
     zp_out: int
     lo: float
     hi: float
     out_f32: bool
+    n_out: int  # N: the columns of the output
     # launch arguments by (M, x is 16-byte aligned), all but the pointers x, out
     launch_args: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
-        N, K = self.w.shape
+        Np, K = self.w.shape
+        if Np % 8 or not Np - 8 < self.n_out <= Np:
+            raise ValueError(f"matmul_int8_requant: {Np} weight rows do not pad "
+                             f"N = {self.n_out} to a multiple of 8")
         _check_operands("matmul_int8_requant", self.w.device,
-                        ("w", self.w, torch.int8, (N, K)),
-                        ("scale", self.scale, torch.float32, (N,)),
-                        ("bias", self.bias, torch.float32, (N,)),
-                        ("wsum", self.wsum, torch.int32, (N,)))
+                        ("w", self.w, torch.int8, (Np, K)),
+                        ("scale", self.scale, torch.float32, (Np,)),
+                        ("bias", self.bias, torch.float32, (Np,)),
+                        ("wsum", self.wsum, torch.int32, (Np,)))
 
 
 def pack_matmul(w_nk, scale, bias, wsum, *, zp_in: int, s_out: float, zp_out: int,
@@ -216,32 +231,53 @@ def pack_matmul(w_nk, scale, bias, wsum, *, zp_in: int, s_out: float, zp_out: in
     ``device=None`` means CUDA."""
     device = resolve_device(device)
     lo, hi = _ACT[act]
+    w = _on(w_nk, device, torch.int8)
+    N = w.shape[0]
+    pad = -N % 8
+
+    def padded(t, dtype):
+        t = _on(t, device, dtype)
+        return F.pad(t, (0, pad)) if pad else t
+
     return MatmulRequant(
-        w=_on(w_nk, device, torch.int8),
-        scale=_on(scale, device, torch.float32),
-        bias=_on(bias, device, torch.float32),
-        wsum=_on(wsum, device, torch.int32),
+        w=F.pad(w, (0, 0, 0, pad)) if pad else w,
+        scale=padded(scale, torch.float32),
+        bias=padded(bias, torch.float32),
+        wsum=padded(wsum, torch.int32),
         zp_in=int(zp_in), inv_out=recip_host(s_out), zp_out=int(zp_out),
-        lo=lo, hi=hi, out_f32=bool(out_f32),
+        lo=lo, hi=hi, out_f32=bool(out_f32), n_out=N,
     )
 
 
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
     """How one K1 call is launched. ``variant`` is ``"mma"`` (tensor cores,
-    weights resident, a ring of x tiles) or ``"dp4a"`` (every shape the
-    first does not take); the other fields are the mma variant's."""
+    weights resident, a ring of whole-K x tiles), ``"stream"`` (tensor
+    cores, x and w streamed in K slices, K split over warps and blocks
+    where the tiles leave SMs idle) or ``"dp4a"`` (K not a multiple of 8,
+    or an operand off its 16-byte boundary)."""
 
     variant: str
     bn: int = 0  # columns of the output per block
-    stages: int = 0  # x tiles in the ring
+    stages: int = 0  # ring stages: x tiles (mma), K slices of x and w (stream)
     pitch: int = 0  # bytes per staged row of x and w
     opitch: int = 0  # bytes per row of the staged output tile
     off_x: int = 0  # shared-memory offsets: the ring, the output tile, the constants
     off_o: int = 0
     off_c: int = 0
     smem: int = 0
-    grid: Tuple[int, int] = (0, 0)  # (blocks walking the row tiles, column tiles)
+    # mma: (blocks walking the row tiles, column tiles); stream: (row tiles
+    # x column tiles, column tiles fastest, 1, K parts)
+    grid: Tuple[int, ...] = (0, 0)
+    # the streamed variant's: bytes of K per slice, row warps (16 rows
+    # each) and K warps of a block (wr * wk = 8), bytes of K per block,
+    # bytes per ring stage and the offset of the w rows in it
+    ks: int = 0
+    wr: int = 0
+    wk: int = 0
+    kchunk: int = 0
+    stage: int = 0
+    off_w: int = 0
 
 
 def matmul_pitch(K: int) -> int:
@@ -252,61 +288,142 @@ def matmul_pitch(K: int) -> int:
     return kp if kp % 64 == 32 else kp + 32
 
 
-def _matmul_layout(bn: int, stages: int, pitch: int, out_f32: bool):
+def _ragged_opitch(bn: int, out_f32: bool) -> int:
+    """Bytes per staged output row where rows are stored at any byte width
+    (N not a multiple of 8, and the streamed variant): a multiple of 16
+    with room for a row shifted by up to 15 bytes (the staged byte keeps
+    its destination's address mod 16)."""
+    return _align16(bn * (4 if out_f32 else 1)) + 16
+
+
+def _matmul_layout(bn: int, stages: int, pitch: int, out_f32: bool, ragged: bool = False):
     """The mma variant's shared memory, laid out here only: ``bn`` rows of
     w at 0, ``stages`` tiles of ``MM_TILE_M`` rows of x at ``off_x`` (one
     array of rows of ``pitch`` bytes), the output tile at ``off_o``, then
     scale, bias and zp_in * wsum of the block's columns at ``off_c``;
     returns ``(opitch, off_x, off_o, off_c, total bytes)``."""
-    opitch = bn * (4 if out_f32 else 1) + 16
+    opitch = _ragged_opitch(bn, out_f32) if ragged else bn * (4 if out_f32 else 1) + 16
     off_x = bn * pitch
     off_o = off_x + stages * MM_TILE_M * pitch
     off_c = off_o + _align16(MM_TILE_M * opitch)
     return opitch, off_x, off_o, off_c, off_c + 12 * bn
 
 
-def matmul_plan(M: int, K: int, N: int, out_f32: bool = False, aligned: bool = True,
-                sms: int = H100_SMS) -> MatmulPlan:
-    """The launch plan of ``x [M, K] . w [N, K]^T``; shapes and the
-    operands' 16-byte alignment alone decide it.
+def _stream_layout(wr: int, wk: int, bn: int, stages: int, pitch: int, out_f32: bool):
+    """The streamed variant's shared memory: ``stages`` ring stages at 0,
+    each ``16 wr`` rows of x then ``bn`` rows of w (at ``off_w``), rows of
+    ``pitch`` bytes; after the last slice the K warps but the first leave
+    their int32 partial sums from 0 (``MM_STREAM_BN / 8`` fragments of 512
+    bytes a warp); the output tile at ``off_o``. Returns ``(stage, off_w,
+    opitch, off_o, total bytes)``."""
+    tm = 16 * wr
+    stage = (tm + bn) * pitch
+    red = (wk - 1) * wr * (MM_STREAM_BN // 8) * 512
+    opitch = _ragged_opitch(bn, out_f32)
+    off_o = _align16(max(stages * stage, red))
+    return stage, tm * pitch, opitch, off_o, off_o + tm * opitch
 
-    The mma variant takes K and N that are multiples of 8 whenever one
-    column tile and one x tile fit shared memory. Column tiles are as few
-    as ``MM_MAX_BN`` allows (x is read once per column tile), but more
-    where the row tiles alone would leave SMs idle (the classifier); the
-    ring holds about ``MM_INFLIGHT`` bytes of x ahead of the math; the
-    grid is persistent: what the card holds at once, dealt over the row
-    tiles."""
-    if M < 1 or K < 8 or N < 8 or K % 8 or N % 8 or not aligned:
-        return MatmulPlan("dp4a")
+
+def _resident_plan(M: int, K: int, N: int, out_f32: bool, sms: int) -> Optional[MatmulPlan]:
+    """The mma variant's plan, or None where one column tile and one x
+    tile do not fit shared memory. Column tiles are as few as
+    ``MM_MAX_BN`` allows (x is read once per column tile), but more where
+    the row tiles alone would leave SMs idle (the classifier); the ring
+    holds about ``MM_INFLIGHT`` bytes of x ahead of the math; the grid is
+    persistent: what the card holds at once, dealt over the row tiles."""
+    Np = -(-N // 8) * 8
     pitch = matmul_pitch(K)
     m_tiles = -(-M // MM_TILE_M)
-    n_split = -(-N // MM_MAX_BN)
+    n_split = -(-Np // MM_MAX_BN)
     if m_tiles * n_split < sms:
-        n_split = max(n_split, min(N // 8, -(-sms // m_tiles)))
-    bn = -(-(-(-N // n_split)) // 8) * 8
+        n_split = max(n_split, min(Np // 8, -(-sms // m_tiles)))
+    bn = -(-(-(-Np // n_split)) // 8) * 8
     stages = min(MM_MAX_STAGES, max(2, -(-MM_INFLIGHT // (MM_TILE_M * K)) + 1))
-    while _matmul_layout(bn, stages, pitch, out_f32)[-1] > SMEM_BUDGET:
+    ragged = N != Np
+    while _matmul_layout(bn, stages, pitch, out_f32, ragged)[-1] > SMEM_BUDGET:
         if stages > 1:
             stages -= 1
         elif bn > 8:
             bn = max(8, bn // 16 * 8)
         else:
-            return MatmulPlan("dp4a")
-    opitch, off_x, off_o, off_c, smem = _matmul_layout(bn, stages, pitch, out_f32)
-    n_tiles = -(-N // bn)
+            return None
+    opitch, off_x, off_o, off_c, smem = _matmul_layout(bn, stages, pitch, out_f32, ragged)
+    n_tiles = -(-Np // bn)
     per_sm = max(1, min(MM_BLOCKS_PER_SM, SMEM_PER_SM // (smem + SMEM_PER_BLOCK_RESERVED)))
     return MatmulPlan("mma", bn=bn, stages=stages, pitch=pitch, opitch=opitch, off_x=off_x,
                       off_o=off_o, off_c=off_c, smem=smem,
                       grid=(min(m_tiles, max(1, sms * per_sm // n_tiles)), n_tiles))
 
 
+def matmul_stream_candidate(M: int, K: int, N: int, out_f32: bool, wr: int, ks: int,
+                            stages: int, bn: int, parts: int) -> Optional[MatmulPlan]:
+    """The streamed variant's plan with its choices forced: ``wr`` strips
+    of 16 rows (the other ``8 / wr`` warps of a strip split its slices),
+    ``ks`` bytes of K a slice, ``stages`` slices in the ring, ``bn``
+    columns a block, K split over up to ``parts`` blocks; None where the
+    kernel cannot run it."""
+    wk = 8 // max(wr, 1)
+    if (wr not in (1, 2, 4, 8) or ks < 64 or ks & (ks - 1) or ks // 32 < wk
+            or bn % 8 or not 8 <= bn <= MM_STREAM_BN or not 2 <= stages <= 8 or parts < 1):
+        return None
+    pitch = ks + 32
+    stage, off_w, opitch, off_o, smem = _stream_layout(wr, wk, bn, stages, pitch, out_f32)
+    if smem > SMEM_BUDGET:
+        return None
+    tiles = -(-M // (16 * wr)) * -(-(-(-N // 8) * 8) // bn)
+    n_slices = -(-K // ks)
+    kchunk = -(-n_slices // min(parts, n_slices, 65535)) * ks
+    return MatmulPlan("stream", bn=bn, stages=stages, pitch=pitch, opitch=opitch,
+                      off_o=off_o, smem=smem, grid=(tiles, 1, -(-K // kchunk)), ks=ks,
+                      wr=wr, wk=wk, kchunk=kchunk, stage=stage, off_w=off_w)
+
+
+def _stream_plan(M: int, K: int, N: int, out_f32: bool, sms: int) -> MatmulPlan:
+    """The streamed variant's plan. The 8 warps of a block take ``wr``
+    strips of 16 rows, as few as cover M (one for a batch-row GEMV), and
+    split each K slice between the ``wk = 8 / wr`` warps of a strip.
+    Slices are 128 bytes deep (256 where 8 warps split them), the ring as
+    deep as 2 blocks per SM allow. Where the tiles leave SMs idle, K is
+    also split over up to as many blocks as the card holds at once."""
+    wr = 8
+    while wr > 1 and 16 * (wr // 2) >= M:
+        wr //= 2
+    ks = 256 if wr == 1 else 128
+    bn = min(MM_STREAM_BN, -(-N // 8) * 8)
+    limit = SMEM_PER_SM // MM_STREAM_BLOCKS_PER_SM - SMEM_PER_BLOCK_RESERVED
+    stages = MM_STREAM_MAX_STAGES
+    while stages > 2 and _stream_layout(wr, 8 // wr, bn, stages, ks + 32, out_f32)[-1] > limit:
+        stages -= 1
+    plan = matmul_stream_candidate(M, K, N, out_f32, wr, ks, stages, bn, 1)
+    tiles = plan.grid[0]
+    if tiles < sms:
+        per_sm = max(1, min(MM_STREAM_BLOCKS_PER_SM,
+                            SMEM_PER_SM // (plan.smem + SMEM_PER_BLOCK_RESERVED)))
+        plan = matmul_stream_candidate(M, K, N, out_f32, wr, ks, stages, bn,
+                                       max(1, sms * per_sm // tiles))
+    return plan
+
+
+def matmul_plan(M: int, K: int, N: int, out_f32: bool = False, aligned: bool = True,
+                sms: int = H100_SMS) -> MatmulPlan:
+    """The launch plan of ``x [M, K] . w [N, K]^T`` (N the real output
+    columns; w padded to a multiple of 8); shapes and the operands'
+    16-byte alignment alone decide it. The mma variant takes every shape
+    whose column tile and whole-K x tile fit shared memory, the streamed
+    variant the rest (K past ~1.8k), the dp4a variant K that is not a
+    multiple of 8 and unaligned operands."""
+    if M < 1 or N < 1 or K < 8 or K % 8 or not aligned:
+        return MatmulPlan("dp4a")
+    return _resident_plan(M, K, N, out_f32, sms) or _stream_plan(M, K, N, out_f32, sms)
+
+
 def matmul_int8_requant_plain(x: torch.Tensor, op: MatmulRequant) -> torch.Tensor:
+    N = op.n_out  # the pad columns are not computed
     # float64 holds every int8 dot product of K <= 2^37 exactly
-    acc = x.to(torch.float64) @ op.w.to(torch.float64).T
-    acc = acc - op.zp_in * op.wsum.to(torch.float64)
+    acc = x.to(torch.float64) @ op.w[:N].to(torch.float64).T
+    acc = acc - op.zp_in * op.wsum[:N].to(torch.float64)
     # f64 -> f32 rounds the integer to nearest even, like int32 -> f32
-    f = fma_f32(acc.to(torch.float32), op.scale, op.bias)
+    f = fma_f32(acc.to(torch.float32), op.scale[:N], op.bias[:N])
     f = torch.clamp(f, op.lo, op.hi)
     if op.out_f32:
         return f
@@ -316,35 +433,40 @@ def matmul_int8_requant_plain(x: torch.Tensor, op: MatmulRequant) -> torch.Tenso
 
 
 class _MatmulArgs(ctypes.Structure):
-    """Layout of ``MatmulArgs`` in ``csrc/matmul_int8_requant.cu``."""
+    """Layout of ``MatmulLaunch`` in ``csrc/matmul_int8_requant.cu``: its
+    ``MatmulArgs`` (through ``grid_y``), then the streamed variant's
+    fields."""
 
     _fields_ = (
         [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "bias", "wsum", "out")]
         + [(n, ctypes.c_int) for n in ("M", "N", "K", "zp_in")]
         + [(n, ctypes.c_float) for n in ("inv", "zp_out", "lo", "hi")]
         + [(n, ctypes.c_int) for n in (
-            "out_f32", "mma", "bn", "stages", "pitch", "opitch", "off_x", "off_o", "off_c",
-            "smem", "grid_x", "grid_y")]
+            "out_f32", "variant", "bn", "stages", "pitch", "opitch", "off_x", "off_o", "off_c",
+            "smem", "grid_x", "grid_y", "Np", "grid_z", "ks", "wr", "wk", "kchunk", "stage",
+            "off_w")]
+        + [("ws", ctypes.c_void_p)]
     )
 
 
 def _matmul_args(op: MatmulRequant, M: int, aligned: bool) -> _MatmulArgs:
-    """The launch arguments of ``op`` on ``M`` rows but the pointers ``x``
-    and ``out``; built once per (M, alignment of x)."""
+    """The launch arguments of ``op`` on ``M`` rows but the pointers ``x``,
+    ``out`` and ``ws``; built once per (M, alignment of x)."""
     a = op.launch_args.get((M, aligned))
     if a is not None:
         return a
-    N, K = op.w.shape
-    plan = matmul_plan(M, K, N, op.out_f32, aligned and _aligned16(op.w),
+    Np, K = op.w.shape
+    plan = matmul_plan(M, K, op.n_out, op.out_f32, aligned and _aligned16(op.w),
                        _sm_count(op.w.device))
     a = _MatmulArgs()
     a.w, a.scale, a.bias, a.wsum = (t.data_ptr() for t in (op.w, op.scale, op.bias, op.wsum))
-    a.M, a.N, a.K, a.zp_in = M, N, K, op.zp_in
+    a.M, a.N, a.Np, a.K, a.zp_in = M, op.n_out, Np, K, op.zp_in
     a.inv, a.zp_out, a.lo, a.hi = op.inv_out, float(op.zp_out), op.lo, op.hi
-    a.out_f32, a.mma = int(op.out_f32), int(plan.variant == "mma")
-    for n in ("bn", "stages", "pitch", "opitch", "off_x", "off_o", "off_c", "smem"):
+    a.out_f32, a.variant = int(op.out_f32), MM_VARIANTS.index(plan.variant)
+    for n in ("bn", "stages", "pitch", "opitch", "off_x", "off_o", "off_c", "smem", "ks", "wr",
+              "wk", "kchunk", "stage", "off_w"):
         setattr(a, n, getattr(plan, n))
-    a.grid_x, a.grid_y = plan.grid
+    a.grid_x, a.grid_y, a.grid_z = (tuple(plan.grid) + (1,))[:3]
     op.launch_args[(M, aligned)] = a
     return a
 
@@ -354,18 +476,23 @@ def matmul_int8_requant_packed(x: torch.Tensor, op: MatmulRequant) -> torch.Tens
     name = "matmul_int8_requant"
     if not _route(x, name):
         return matmul_int8_requant_plain(x, op)
-    N, K = op.w.shape
+    Np, K = op.w.shape
     M = x.shape[0]
     _check(name + " x", x, torch.int8, (M, K), op.w.device)
-    out = torch.empty((M, N), dtype=torch.float32 if op.out_f32 else torch.int8,
+    out = torch.empty((M, op.n_out), dtype=torch.float32 if op.out_f32 else torch.int8,
                       device=x.device)
     # a copy per call: serving threads may launch the same site at once
     a = _MatmulArgs.from_buffer_copy(_matmul_args(op, M, _aligned16(x)))
     a.x, a.out = x.data_ptr(), out.data_ptr()
+    if a.grid_z > 1:
+        # K split over blocks: the int32 sums of the output and a counter
+        # per output tile, zeroed on the launch's stream, one set per call
+        ws = torch.zeros(M * Np + a.grid_x, dtype=torch.int32, device=x.device)
+        a.ws = ws.data_ptr()
     with _launch_on(x.device):
         err = _fn("dfq_matmul_int8_requant")(ctypes.byref(a), _stream(x.device))
     _raise_on(err, name)
-    _count_launch(name, "mma" if a.mma else "dp4a")
+    _count_launch(name, MM_VARIANTS[a.variant])
     return out
 
 

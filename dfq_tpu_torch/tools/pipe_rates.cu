@@ -4,7 +4,9 @@
 // per clock and SM at the clock given on the command line. Built and run
 // by pipe_rates.py; it tells what a kernel's epilogue can afford (on H100
 // rintf and float-to-int run at a quarter of the rate of dp4a, integer
-// and min/max operations, float multiply-adds at twice).
+// and min/max operations, float multiply-adds at twice), and the warp-wide
+// mma.sync.m16n8k32 s8 rate that the tensor-core variants' inner loops
+// can reach.
 
 #include <cstdio>
 #include <cstdlib>
@@ -37,6 +39,43 @@ __global__ void chains(int* out, int a0, int b0, float f0, int iters) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) s += a[i] + __float_as_int(f[i]);
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+// 8 independent accumulator fragments a warp, one mma.sync.m16n8k32 s8 on each
+__global__ void mma_chains(int* out, unsigned a0, int iters) {
+  int d[8][4] = {};
+  const unsigned a = a0 + threadIdx.x;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(d[i][0]), "+r"(d[i][1]), "+r"(d[i][2]), "+r"(d[i][3])
+          : "r"(a), "r"(a + 1), "r"(a + 2), "r"(a + 3), "r"(a + i), "r"(a));
+  }
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += d[i][0] + d[i][1] + d[i][2] + d[i][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+void run_mma(int sms, double mhz, int* out) {
+  const int blocks = sms * 4, threads = 256, iters = 4096;  // 32 warps an SM
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  mma_chains<<<blocks, threads>>>(out, 1, 16);
+  cudaEventRecord(e0);
+  mma_chains<<<blocks, threads>>>(out, 1, iters);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const double mmas = (double)blocks * (threads / 32) * 8 * iters;
+  printf("%-14s %6.3f warp instructions/clock/SM (8192 int8 operations each: %.0f TOP/s), "
+         "%.3f ms\n", "mma.m16n8k32", mmas / (ms * 1e-3) / sms / (mhz * 1e6),
+         mmas * 8192 / (ms * 1e-3) / 1e12, ms);
 }
 
 template <int OP>
@@ -78,6 +117,7 @@ int main(int argc, char** argv) {
   run<6>("imax+iadd", 2, sms, mhz, out);
   run<7>("rintf+fadd", 2, sms, mhz, out);
   run<8>("fmax+fadd", 2, sms, mhz, out);
+  run_mma(sms, mhz, out);
   cudaFree(out);
   return cudaGetLastError() == cudaSuccess ? 0 : 1;
 }

@@ -5,7 +5,8 @@
 Builds ``pipe_rates.cu`` (beside this file) with ``nvcc`` into
 ``build/cuda/`` and runs it on GPU 0: thread-operations per clock and SM
 for dp4a, integer multiply-add, float multiply-add, int-to-float,
-float-to-int, byte permute, integer and float min/max, and ``rintf``, at
+float-to-int, byte permute, integer and float min/max, ``rintf``, and
+``mma.sync.m16n8k32`` s8 (warp instructions per clock and SM), at
 the card's maximum SM clock as ``nvidia-smi`` reports it (a card that
 runs below it under load reads low). The kernels' epilogues are written
 from these figures (``csrc/int8_epilogue.cuh``).

@@ -3,16 +3,18 @@
 Marked ``cuda`` and skipped without a CUDA device (decided in a fixture,
 not at import). On the GPU machine run ``python -m pytest
 tests/test_torch_cuda.py -q``. Covers the kernel variants the MobileNetV2
-main path of ``chip_smoke.py`` does not reach: ragged M/N/K and unaligned
-K on K1 (its dp4a variant), its tensor-core variant at every main-path
+main path of ``chip_smoke.py`` does not reach: ragged K and unaligned
+operands on K1 (its dp4a variant), ragged N on its resident tensor-core
+variant, long K, ragged N and batch-row GEMVs split over K on its
+streamed variant (two runs bit-equal), its resident variant at every main-path
 (K, N) with a ragged last tile and with more tiles than blocks, channel
 counts that are not a multiple of 4 on K2 (its general variant), its
 strip variant with ragged strips and slabs and extreme zero points, f32
 output and both residual requants on K3, both K3 variants at the real
 channel counts of its 7 main-path shape classes on small and ragged
 images, the wrappers' argument checks, the SSD-Lite and DeepLab shapes
-(K1's ``dp4a`` variant at the class heads and the segmentation
-classifier, K2 and K3 at the detection sites, the dilated ASPP, decoder
+(K1's resident variant at the class heads and the segmentation
+classifier, N not a multiple of 8, K2 and K3 at the detection sites, the dilated ASPP, decoder
 and unpadded depthwise convs), calibration's distillation loss and
 gradient and ``calibrate_ranges`` on the card against the CPU, the
 sharded fused forward at 3 and 4 shards on one card, and each wrapper
@@ -384,7 +386,48 @@ def test_int8_maxpool_pad_on_cuda_equal_cpu(dev):
     (4 * 16641, 256, 21), (3 * 16641, 256, 21),  # DeepLab's classifier
 ])
 def test_matmul_dp4a_variant_at_the_head_sites(dev, M, K, N):
-    _mm_case(dev, M, K, N, "none", N == 126, "dp4a")
+    """Sites that only the dp4a variant took before N was padded: now the
+    resident variant on N padded to a multiple of 8, rows stored at any
+    byte width."""
+    _mm_case(dev, M, K, N, "none", N == 126, "mma")
+
+
+@pytest.mark.parametrize("out_f32", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 17, 300])
+@pytest.mark.parametrize("K", [2048, 4096, 9216])
+@pytest.mark.parametrize("N", [1, 21, 126])
+def test_matmul_stream_variant_equals_plain(dev, N, K, M, out_f32):
+    """The streamed variant at ragged N, K past a whole-K tile and batch
+    rows: bit-equal to the plain version, and a launch split over K
+    gives the same bits twice (its K parts add by int32 atomics)."""
+    rng = np.random.default_rng(M + K + N)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (N, K)).astype(np.int8)
+    op = ck.pack_matmul(w, rng.uniform(1e-6, 2e-5, N).astype(np.float32),
+                        rng.normal(0, 1, N).astype(np.float32),
+                        w.astype(np.int32).sum(1), zp_in=-5, s_out=0.0371, zp_out=-20,
+                        act="relu", out_f32=out_f32, device=dev)
+    xd = _t(x, dev)
+    plan = ck.matmul_plan(M, K, N, out_f32)
+    assert plan.variant == "stream"
+    ck.reset_counts()
+    got = ck.matmul_int8_requant_packed(xd, op)
+    again = ck.matmul_int8_requant_packed(xd, op)
+    assert ck.VARIANTS["matmul_int8_requant"] == {"mma": 0, "stream": 2, "dp4a": 0}
+    _equal(got, ck.matmul_int8_requant_plain(xd, op))
+    if plan.grid[2] > 1:
+        _equal(again, got)
+
+
+@pytest.mark.parametrize("shape", [(9, 8, 12), (777, 96, 126), (70000, 24, 21), (5, 1280, 3)])
+def test_matmul_ragged_n_on_the_resident_variant(dev, shape):
+    """N not a multiple of 8 on the resident variant: one run a warp where
+    a block holds all N columns, a run a row where the columns are split
+    over blocks; odd row widths in int8 and f32."""
+    M, K, N = shape
+    for out_f32 in (False, True):
+        assert ck.matmul_plan(M, K, N, out_f32).variant == "mma"
+        _mm_case(dev, M, K, N, "relu6", out_f32, "mma")
 
 
 @pytest.mark.parametrize("shape", [(3, 150, 150, 32), (3, 19, 19, 576), (3, 10, 10, 1280),

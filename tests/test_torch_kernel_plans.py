@@ -26,6 +26,7 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -217,6 +218,7 @@ def test_quant_recip_clamped_equals_quant_recip(act, s_out, zp_out):
 
 def _check_mma_plan(plan, M, K, N, out_f32):
     es = 4 if out_f32 else 1
+    Np = -(-N // 8) * 8  # the packed weight's rows
     assert plan.variant == "mma"
     assert plan.smem <= ck.SMEM_BUDGET
     assert plan.bn % 8 == 0 and 8 <= plan.bn <= max(ck.MM_MAX_BN, 8)
@@ -230,17 +232,58 @@ def _check_mma_plan(plan, M, K, N, out_f32):
     assert plan.opitch >= plan.bn * es and plan.opitch % 8 == 0
     if out_f32 or (N % 16 == 0 and plan.bn % 16 == 0):
         assert plan.opitch % 16 == 0  # the tile is stored in 16-byte pieces
+    if N != Np:  # rows of any width: staged at their destination's address mod 16
+        assert plan.opitch % 16 == 0 and plan.opitch >= plan.bn * es + 16
     assert plan.off_o % 16 == 0 and plan.off_c % 16 == 0
     assert plan.off_c >= plan.off_o + ck.MM_TILE_M * plan.opitch
     assert plan.smem == plan.off_c + 12 * plan.bn
-    # the grid: column tiles cover N, row walkers never outnumber row tiles
+    # the grid: column tiles cover Np, row walkers never outnumber row tiles
     gx, gy = plan.grid
     m_tiles = -(-M // ck.MM_TILE_M)
-    assert gy == -(-N // plan.bn) and (gy - 1) * plan.bn < N
+    assert gy == -(-Np // plan.bn) and (gy - 1) * plan.bn < N
     assert 1 <= gx <= m_tiles
     per_sm = min(ck.MM_BLOCKS_PER_SM,
                  ck.SMEM_PER_SM // (plan.smem + ck.SMEM_PER_BLOCK_RESERVED))
     assert gx * gy <= max(gy, ck.H100_SMS * per_sm)  # persistent: one wave
+
+
+def _check_stream_plan(plan, M, K, N, out_f32):
+    """The streamed variant's plan: what its entry point checks, and the
+    choices of ``_stream_plan``."""
+    es = 4 if out_f32 else 1
+    Np = -(-N // 8) * 8
+    assert plan.variant == "stream"
+    assert plan.bn % 8 == 0 and 8 <= plan.bn <= ck.MM_STREAM_BN and plan.bn == min(64, Np)
+    # as few 16-row strips as cover M; the other warps split the slices
+    assert plan.wr in (1, 2, 4, 8) and plan.wr * plan.wk == 8
+    assert plan.wr == 1 or 16 * (plan.wr // 2) < M
+    assert plan.ks % 32 == 0 and plan.ks // 32 >= plan.wk
+    assert plan.pitch % 64 == 32 and plan.pitch == plan.ks + 32
+    tm = 16 * plan.wr
+    assert plan.off_w == tm * plan.pitch and plan.stage == (tm + plan.bn) * plan.pitch
+    assert 2 <= plan.stages <= ck.MM_STREAM_MAX_STAGES
+    red = (plan.wk - 1) * plan.wr * (ck.MM_STREAM_BN // 8) * 512
+    assert plan.off_o % 16 == 0 and plan.off_o >= max(plan.stages * plan.stage, red)
+    assert plan.opitch % 16 == 0 and plan.opitch >= plan.bn * es + 16
+    assert plan.smem == plan.off_o + tm * plan.opitch
+    assert plan.smem + ck.SMEM_PER_BLOCK_RESERVED <= ck.SMEM_PER_SM // 2  # 2 blocks an SM
+    # blocks: row tiles x column tiles, then K parts that cover K once
+    tiles = -(-M // tm) * -(-Np // plan.bn)
+    gx, gy, parts = plan.grid
+    assert gx == tiles and gy == 1
+    assert plan.kchunk % plan.ks == 0 and (parts - 1) * plan.kchunk < K <= parts * plan.kchunk
+    if tiles >= ck.H100_SMS:
+        assert parts == 1
+    else:  # K parts fill the SMs idle tiles leave, one wave
+        assert tiles * parts <= 2 * ck.H100_SMS
+        assert parts == -(-K // plan.ks) or tiles * (parts + 1) > 2 * ck.H100_SMS - tiles
+
+
+def _check_plan(plan, M, K, N, out_f32):
+    if plan.variant == "mma":
+        _check_mma_plan(plan, M, K, N, out_f32)
+    else:
+        _check_stream_plan(plan, M, K, N, out_f32)
 
 
 @pytest.mark.parametrize("batch", [8, 128])
@@ -259,14 +302,22 @@ def test_matmul_plan_other_aligned_shapes(shape, out_f32):
     _check_mma_plan(ck.matmul_plan(M, K, N, out_f32), M, K, N, out_f32)
 
 
-@pytest.mark.parametrize("shape,aligned", [
-    ((301, 27, 19), True), ((5, 3, 2), True), ((64, 8, 12), True), ((64, 12, 8), True),
-    ((70, 48, 40), False),  # x or w off its 16-byte boundary
-    ((64, 4096, 64), True),  # one tile of x does not fit shared memory
+@pytest.mark.parametrize("shape,aligned,variant", [
+    ((301, 27, 19), True, "dp4a"), ((5, 3, 2), True, "dp4a"),
+    ((64, 8, 12), True, "mma"),  # N padded to 16 in the packed weight
+    ((64, 12, 8), True, "dp4a"),
+    ((70, 48, 40), False, "dp4a"),  # x or w off its 16-byte boundary
+    ((64, 4096, 64), True, "stream"),  # one tile of x does not fit shared memory
 ])
-def test_matmul_plan_general_variant(shape, aligned):
+def test_matmul_plan_general_variant(shape, aligned, variant):
+    """dp4a is left with K not a multiple of 8 (or under 8) and unaligned
+    operands; a ragged N and a long K take the tensor cores."""
     plan = ck.matmul_plan(*shape, aligned=aligned)
-    assert plan == ck.MatmulPlan("dp4a")
+    if variant == "dp4a":
+        assert plan == ck.MatmulPlan("dp4a")
+    else:
+        assert plan.variant == variant
+        _check_plan(plan, *shape, False)
 
 
 def test_matmul_plan_streams_whole_rows_at_the_large_sites():
@@ -320,14 +371,18 @@ def test_mma_fragment_plan_equals_the_plain_product():
 
 
 def test_matmul_args_layout_matches_the_source():
-    # 6 pointers, then 20 four-byte fields, no padding: MatmulArgs in
-    # csrc/matmul_int8_requant.cu
-    assert ctypes.sizeof(ck._MatmulArgs) == 6 * 8 + 20 * 4
+    # 6 pointers, 28 four-byte fields, then the workspace pointer, no
+    # padding: MatmulLaunch in csrc/matmul_int8_requant.cu, whose first 128
+    # bytes are MatmulArgs, the resident variant's kernel parameter
+    assert ctypes.sizeof(ck._MatmulArgs) == 6 * 8 + 28 * 4 + 8
+    assert ck._MatmulArgs.Np.offset == 128
     names = [n for n, _ in ck._MatmulArgs._fields_]
     assert names[:6] == ["x", "w", "scale", "bias", "wsum", "out"]
     assert names[6:15] == ["M", "N", "K", "zp_in", "inv", "zp_out", "lo", "hi", "out_f32"]
-    assert names[15:] == ["mma", "bn", "stages", "pitch", "opitch", "off_x", "off_o",
-                          "off_c", "smem", "grid_x", "grid_y"]
+    assert names[15:] == ["variant", "bn", "stages", "pitch", "opitch", "off_x", "off_o",
+                          "off_c", "smem", "grid_x", "grid_y", "Np", "grid_z", "ks", "wr", "wk",
+                          "kchunk", "stage", "off_w", "ws"]
+    assert ck.MM_VARIANTS == ("dp4a", "mma", "stream")
 
 
 @pytest.mark.parametrize("shape", [(4, 8), (24, 144), (576, 160)])
@@ -341,14 +396,14 @@ def test_pack_words_roundtrip(shape):
 
 def test_variant_counts_reset_with_the_launch_counts():
     ck.reset_counts()
-    assert ck.VARIANTS == {"matmul_int8_requant": {"mma": 0, "dp4a": 0},
+    assert ck.VARIANTS == {"matmul_int8_requant": {"mma": 0, "stream": 0, "dp4a": 0},
                            "dw3x3_int8_requant": {"strip": 0, "general": 0},
                            "fused_block_int8": {"mma": 0, "general": 0}}
     ck._count_launch("matmul_int8_requant", "mma")
     ck._count_launch("fused_block_int8", "general")
     assert ck.LAUNCHES == {"matmul_int8_requant": 1, "dw3x3_int8_requant": 0,
                            "fused_block_int8": 1}
-    assert ck.VARIANTS["matmul_int8_requant"] == {"mma": 1, "dp4a": 0}
+    assert ck.VARIANTS["matmul_int8_requant"] == {"mma": 1, "stream": 0, "dp4a": 0}
     assert ck.VARIANTS["fused_block_int8"] == {"mma": 0, "general": 1}
     ck.reset_counts()
     assert ck.LAUNCHES["matmul_int8_requant"] == 0
@@ -893,27 +948,24 @@ DEEPLAB_K1_SITES = [
 @pytest.mark.parametrize("batch", [3, 8, 128])
 @pytest.mark.parametrize("site", SSD_K1_SITES, ids=lambda s: "x".join(map(str, s[:3])))
 def test_matmul_plan_ssd_sites(site, batch):
-    """Every SSD-Lite K1 site takes the tensor-core variant but the six
-    class heads, whose N = 6 * 21 = 126 is not a multiple of 8 (the mma
-    variant's column tiles are 8 wide): they take the dp4a variant."""
+    """Every SSD-Lite K1 site takes the tensor-core variant, the six class
+    heads too: their N = 6 * 21 = 126 is padded to 128 in the packed
+    weight, and their rows of 126 bytes are stored at any byte width."""
     rows, K, N, out_f32 = site
-    plan = ck.matmul_plan(rows * batch, K, N, out_f32)
-    if N % 8:
-        assert plan == ck.MatmulPlan("dp4a")
-    else:
-        _check_mma_plan(plan, rows * batch, K, N, out_f32)
+    _check_mma_plan(ck.matmul_plan(rows * batch, K, N, out_f32), rows * batch, K, N, out_f32)
 
 
 @pytest.mark.parametrize("batch", [3, 4, 8])
 @pytest.mark.parametrize("site", DEEPLAB_K1_SITES, ids=lambda s: "x".join(map(str, s)))
 def test_matmul_plan_deeplab_sites(site, batch):
-    """DeepLab's 38 K1 launches: all tensor-core but the classifier (N = 21)."""
+    """DeepLab's 38 K1 launches, all tensor-core, the classifier (N = 21,
+    padded to 24) too: from batch 3 its block holds all 21 columns, so a
+    warp's 16 rows are one run of 336 bytes."""
     rows, K, N = site
     plan = ck.matmul_plan(rows * batch, K, N)
+    _check_mma_plan(plan, rows * batch, K, N, False)
     if N == 21:
-        assert plan == ck.MatmulPlan("dp4a")
-    else:
-        _check_mma_plan(plan, rows * batch, K, N, False)
+        assert plan.bn == 24 and plan.grid[1] == 1
 
 
 @pytest.mark.parametrize("batch", [3, 8, 128])
@@ -968,7 +1020,8 @@ def test_fused_block_plan_mobilenet_v1_sites(site, N):
         assert plan.grid[1] in (2, 4)
 
 
-# the zoo's K1 shape classes that leave the tensor-core variant, (rows per
+# the zoo's K1 shape classes that only the dp4a variant took before N was
+# padded and long K streamed, (rows per
 # image, K, N): AlexNet's classifier (K 9216 and 4096 after the flatten),
 # a K of 2048 (Xception's ASPP, DRN's layer6 and ResNet-101's layer4 at
 # DeepLab 513x513), N = 126 at MobileNetV1-SSD-Lite's and
@@ -980,14 +1033,234 @@ ZOO_DP4A_SITES = [(1, 9216, 4096), (1, 4096, 4096), (1, 4096, 1000), (33 * 33, 2
 
 @pytest.mark.parametrize("batch", [1, 3, 8, 128])
 @pytest.mark.parametrize("site", ZOO_DP4A_SITES, ids=lambda s: "x".join(map(str, s)))
-def test_matmul_plan_zoo_sites_on_dp4a(site, batch):
-    """The mma variant stages whole 128-row tiles of x in shared memory, so
-    a K past ~1.8k cannot take it (one tile of K = 2048 is 266 KB), nor can
-    an N that is not a multiple of 8: these take the dp4a variant, which
-    walks K in 32-byte steps and accumulates in int32 (|sum| <= K * 2^14 <
-    2^31 at K = 9216)."""
+def test_matmul_plan_zoo_sites_on_the_tensor_cores(site, batch):
+    """The resident variant stages whole 128-row tiles of x in shared
+    memory, so a K past ~1.8k cannot take it (one tile of K = 2048 is 266
+    KB): those sites take the streamed variant, whose slices of K keep
+    int32 accumulators in registers (|sum| <= K * 2^14 < 2^31 at K = 9216).
+    The heads' N = 126 take the resident variant on a padded weight. At
+    a batch-row GEMV one 16-row strip takes all 8 warps, which split K,
+    and K is also split over the blocks that 64 column tiles leave idle."""
     rows, K, N = site
-    assert ck.matmul_plan(rows * batch, K, N) == ck.MatmulPlan("dp4a")
+    M = rows * batch
+    head = N % 8 != 0  # a class head: f32 out
+    plan = ck.matmul_plan(M, K, N, head)
     assert K * 128 * 128 < 2**31
-    if N % 8 == 0:
+    if not head:
         assert ck.MM_TILE_M * ck.matmul_pitch(K) > ck.SMEM_BUDGET
+        _check_stream_plan(plan, M, K, N, False)
+        if M <= 16:
+            assert plan.wr == 1 and plan.wk == 8
+        if N == 4096 and M <= 128:
+            assert plan.grid == (64, 1, 4)
+    else:
+        _check_mma_plan(plan, M, K, N, True)
+
+
+# the resident plans as matmul_plan made them before N was padded and
+# long K streamed (N a multiple of 8): every shape they took keeps its plan
+def _resident_plan_before(M, K, N, out_f32, sms=ck.H100_SMS):
+    if M < 1 or K < 8 or N < 8 or K % 8 or N % 8:
+        return None
+    pitch = ck.matmul_pitch(K)
+    m_tiles = -(-M // 128)
+    n_split = -(-N // 256)
+    if m_tiles * n_split < sms:
+        n_split = max(n_split, min(N // 8, -(-sms // m_tiles)))
+    bn = -(-(-(-N // n_split)) // 8) * 8
+    stages = min(8, max(2, -(-16384 // (128 * K)) + 1))
+
+    def layout(bn, stages):
+        opitch = bn * (4 if out_f32 else 1) + 16
+        off_x = bn * pitch
+        off_o = off_x + stages * 128 * pitch
+        off_c = off_o + -(-128 * opitch // 16) * 16
+        return opitch, off_x, off_o, off_c, off_c + 12 * bn
+
+    while layout(bn, stages)[-1] > 232448:
+        if stages > 1:
+            stages -= 1
+        elif bn > 8:
+            bn = max(8, bn // 16 * 8)
+        else:
+            return None
+    opitch, off_x, off_o, off_c, smem = layout(bn, stages)
+    n_tiles = -(-N // bn)
+    per_sm = max(1, min(3, 233472 // (smem + 1024)))
+    return dict(bn=bn, stages=stages, pitch=pitch, opitch=opitch, off_x=off_x, off_o=off_o,
+                off_c=off_c, smem=smem,
+                grid=(min(m_tiles, max(1, sms * per_sm // n_tiles)), n_tiles))
+
+
+@pytest.mark.parametrize("path", ["mobilenet_v2", "ssd_lite", "deeplab"])
+def test_matmul_plan_resident_sites_unchanged(path):
+    sites = {"mobilenet_v2": [(r, k, n, n == 1000) for r, k, n in K1_SITES],
+             "ssd_lite": SSD_K1_SITES,
+             "deeplab": [(r, k, n, False) for r, k, n in DEEPLAB_K1_SITES]}[path]
+    n = 0
+    for rows, K, N, out_f32 in sites:
+        for batch in (1, 3, 4, 8, 128):
+            want = _resident_plan_before(rows * batch, K, N, out_f32)
+            if want is None:
+                continue
+            plan = ck.matmul_plan(rows * batch, K, N, out_f32)
+            assert plan == ck.MatmulPlan("mma", **want), (rows, K, N, batch)
+            n += 1
+    assert n == {"mobilenet_v2": 55, "ssd_lite": 120, "deeplab": 115}[path]
+
+
+# ---------------------------------------------------------------------------
+# the store of rows at any byte width and the streamed variant, emulated
+
+def _staged_row(g, r, whole, row_bytes, opitch):
+    """``staged_row`` of ``csrc/matmul_int8_requant.cu``: where row r of a
+    warp's rows is staged; ``g`` is the warp's first output byte address."""
+    return (g & 15) + r * row_bytes if whole else r * opitch + ((g + r * row_bytes) & 15)
+
+
+def _store_runs(out, base, g, gstride, s, sstride, nrun, length, writes):
+    """``store_runs`` lane by lane: run i from staging ``s`` (a numpy byte
+    array at a 16-byte boundary) to byte address ``g + i * gstride`` of
+    ``out`` (whose byte 0 is at address ``base``); counts every byte
+    written in ``writes`` and checks that each 16-byte piece is aligned on
+    both sides."""
+    for i in range(nrun):
+        gi = g + i * gstride
+        sh = gi & 15
+        si = i * sstride + sh
+        head = min(length, (16 - sh) & 15)
+        body = (length - head) >> 4
+        tail = (length - head) & 15
+        for lane in range(32):
+            if lane < head:
+                out[gi - base + lane] = s[si + lane]
+                writes[gi - base + lane] += 1
+            for p in range(lane, body, 32):
+                a = head + 16 * p
+                assert (gi + a) % 16 == 0 and (si + a) % 16 == 0
+                out[gi - base + a:gi - base + a + 16] = s[si + a:si + a + 16]
+                writes[gi - base + a:gi - base + a + 16] += 1
+            if lane < tail:
+                a = head + 16 * body + lane
+                out[gi - base + a] = s[si + a]
+                writes[gi - base + a] += 1
+
+
+@pytest.mark.parametrize("es", [1, 4])
+@pytest.mark.parametrize("N", [1, 3, 21, 126, 1000])
+@pytest.mark.parametrize("M", [1, 16, 37])
+def test_store_walk_writes_each_output_byte_once(M, N, es):
+    """A warp stages its rows' real columns (``stage_pair``: single stores,
+    never the pad columns) at their destination's address mod 16 and
+    stores them with ``store_runs``: one run of rows * N * ES bytes where
+    the block holds all N columns, else a run a row. Exactly M * N * ES
+    bytes are written, each once with its value, none outside the rows;
+    the staged rows of a strip (all 16, past M too) stay in the warp's
+    16 * opitch bytes."""
+    Np = -(-N // 8) * 8
+    rng = np.random.default_rng(M + N + es)
+    want = rng.integers(0, 256, M * N * es, dtype=np.uint8)
+    row_bytes = N * es
+    base = 4096 + 16 * 3  # the allocation's address: 16-byte aligned
+    for bn in sorted({Np, min(Np, 64), 8}):
+        opitch = ck._ragged_opitch(bn, es == 4)
+        guard = 64
+        out = np.zeros(M * row_bytes + 2 * guard, np.uint8)
+        writes = np.zeros_like(out, dtype=np.int64)
+        for n0 in range(0, Np, bn):
+            nvr = min(bn, N - n0)
+            whole = n0 == 0 and nvr == N
+            for m0 in range(0, M, 16):
+                rows = min(16, M - m0)
+                g = base + (m0 * N + n0) * es
+                stage = np.zeros(16 * opitch, np.uint8)
+                for r in range(16):
+                    ro = _staged_row(g, r, whole, row_bytes, opitch)
+                    for c in range(nvr):  # real columns only
+                        at = ro + c * es
+                        assert at + es <= stage.size
+                        if r < rows:
+                            v = want[((m0 + r) * N + n0 + c) * es:((m0 + r) * N + n0 + c + 1) * es]
+                            stage[at:at + es] = v
+                _store_runs(out[guard:], base, g, row_bytes, stage, opitch,
+                            1 if whole else rows, rows * row_bytes if whole else nvr * es,
+                            writes[guard:])
+        assert (writes[:guard] == 0).all() and (writes[guard + M * row_bytes:] == 0).all()
+        assert (writes[guard:guard + M * row_bytes] == 1).all(), bn
+        np.testing.assert_array_equal(out[guard:guard + M * row_bytes], want)
+
+
+def _emulate_stream_sums(x, w, plan):
+    """The streamed variant's int32 sums of ``x [M, K] . w [Np, K]^T``,
+    block by block as ``mm_stream_kernel`` forms them: slices of ``ks``
+    bytes within each block's K part (zeros past K), the slice's 32-byte
+    steps dealt to the strip's K warps, their partial sums added in the
+    first, the K parts added into the workspace (int32, wrapping as the
+    hardware does). Returns ``(sums [M, Np], cover)``: ``cover[t, k]``
+    counts the times tile t's warps took byte k of K."""
+    M, K = x.shape
+    Np = w.shape[0]
+    tm, bn = 16 * plan.wr, plan.bn
+    n_tiles = -(-Np // bn)
+    tiles, _, parts = plan.grid
+    ws = np.zeros((M, Np), np.int32)
+    cover = np.zeros((tiles, K), np.int64)
+    for b in range(tiles):
+        mt, nt = divmod(b, n_tiles)
+        m0, n0 = mt * tm, nt * bn
+        nv = min(bn, Np - n0)
+        for z in range(parts):
+            k_beg = z * plan.kchunk
+            k_end = min(K, k_beg + plan.kchunk)
+            partial = np.zeros((plan.wk, tm, nv), np.int32)
+            for i in range(-(-(k_end - k_beg) // plan.ks)):
+                k0 = k_beg + i * plan.ks
+                xs = np.zeros((tm, plan.ks), np.int64)  # the stage, zero-filled
+                ws_ = np.zeros((nv, plan.ks), np.int64)
+                kk = min(k_end, k0 + plan.ks) - k0
+                xs[:max(0, min(tm, M - m0)), :kk] = x[m0:m0 + tm, k0:k0 + kk]
+                ws_[:, :kk] = w[n0:n0 + nv, k0:k0 + kk]
+                for kg in range(plan.wk):
+                    for step in range(kg, plan.ks // 32, plan.wk):
+                        k = slice(32 * step, 32 * step + 32)
+                        partial[kg] += (xs[:, k] @ ws_[:, k].T).astype(np.int32)
+                        cover[b, k0 + 32 * step:min(k_end, k0 + 32 * step + 32)] += 1
+            acc = partial.sum(0, dtype=np.int32)  # the K warps, in shared memory
+            rows = max(0, min(tm, M - m0))
+            ws[m0:m0 + rows, n0:n0 + nv] += acc[:rows]  # atomicAdd
+    return ws, cover
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 9216, 4096), (1, 4096, 1000), (37, 2048, 126),
+                                   (17, 4096, 21), (300, 2048, 64), (8, 9216, 1)])
+def test_split_k_plan_covers_k_once_and_sums_exactly(M, K, N):
+    """The streamed plan at the GEMV and K = 2048 shapes: every tile's
+    warps take each byte of K exactly once over its K parts, and the int32
+    partial sums add to the exact product. Operands at the extremes
+    (-128 x -128 everywhere) give the largest sum, K * 2^14 = 1.5e8 at
+    K = 9216, inside int32; random ones check the indexing. The large
+    shapes are cut to their first column tiles (the same plan)."""
+    plan = ck.matmul_plan(M, K, N)
+    assert plan.variant == "stream"
+    _check_stream_plan(plan, M, K, N, False)
+    Np = -(-N // 8) * 8
+    n_cols = min(Np, 2 * plan.bn)  # two column tiles are enough to index
+    cut = dataclasses.replace(plan, grid=(-(-M // (16 * plan.wr)) * -(-n_cols // plan.bn), 1,
+                                          plan.grid[2]))
+    rng = np.random.default_rng(M + K + N)
+    for fill in ("extreme", "random"):
+        if fill == "extreme":
+            x = np.full((M, K), -128, np.int64)
+            w = np.full((n_cols, K), -128, np.int64)
+        else:
+            x = rng.integers(-128, 128, (M, K))
+            w = rng.integers(-128, 128, (n_cols, K))
+        if n_cols > N:  # the pad rows of the packed weight
+            w[N:] = 0
+        sums, cover = _emulate_stream_sums(x, w, cut)
+        assert (cover == 1).all()
+        want = x @ w.T
+        assert np.abs(want).max() < 2**31
+        np.testing.assert_array_equal(sums.astype(np.int64), want)
+        if fill == "extreme":
+            assert int(want.max()) == K * 2**14
