@@ -1,0 +1,1 @@
+from portbench.readings import images_per_s as read  # noqa: F401

@@ -1,0 +1,1 @@
+from portbench.readings import kernels_roofline_pct as read  # noqa: F401

@@ -1,0 +1,1 @@
+from portbench.readings import mfu_pct as read  # noqa: F401
