@@ -14,8 +14,15 @@ fixed shapes, batched over images and classes at once:
   loop: each step takes the first candidate still alive, which is the
   greedy pick since candidates are score-sorted, and suppresses its
   overlaps. ``min(top_k, candidate_size)`` steps at most; the loop stops
-  early once no candidate of any row is alive, which changes no output;
+  early once no candidate of any row is alive, which changes no output.
+  Each step first asks the device whether any candidate is alive, a host
+  sync: :data:`COUNTS` sums them, with the calls and the early stops;
 - output: fixed-shape ``(C-1, top_k)`` boxes / scores / valid per image.
+
+While a ``torch.profiler`` runs, a call opens the range
+``device_nms/decode_nms_batch`` (a FUNCTION-scope range, as the fused
+engine's: it leaves a caller's ``record_function`` its device
+annotation).
 
 Not a kernel: a few dozen small torch ops a step. Exactness against the
 host path and against the JAX package: ``tests/test_torch_detection.py``.
@@ -23,10 +30,25 @@ host path and against the JAX package: ``tests/test_torch_detection.py``.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast as _Range
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN = "device_nms/decode_nms_batch"
+# calls of decode_nms_batch, host syncs (one per pick step's alive check)
+# and calls whose loop stopped early; serving threads share them
+COUNTS = {"calls": 0, "host_syncs": 0, "early_stops": 0}
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(key: str) -> None:
+    with _COUNTS_LOCK:
+        COUNTS[key] += 1
 
 
 def decode_locations(loc, priors, center_variance: float, size_variance: float):
@@ -58,7 +80,9 @@ def _nms_rows(scores, boxes, prob_threshold: float, iou_threshold: float,
     valid = torch.zeros((R, top_k), dtype=torch.bool, device=scores.device)
     rows = torch.arange(R, device=scores.device)
     for t in range(min(top_k, candidate_size)):
+        _count("host_syncs")
         if not bool(alive.any()):
+            _count("early_stops")
             break
         first = torch.argmax(alive.to(torch.uint8), dim=-1)  # first alive; 0 if none
         take = alive[rows, first]
@@ -93,15 +117,17 @@ def decode_nms_batch(
     """Batched post-process on ``conf``'s device: ``(boxes[B, C-1, top_k, 4],
     scores[B, C-1, top_k], valid[B, C-1, top_k])``; class 0 (background)
     is skipped, so row c is class c+1."""
-    conf = torch.as_tensor(conf)
-    loc = torch.as_tensor(loc, device=conf.device)
-    priors = torch.as_tensor(priors, device=conf.device)
-    B, P, C = conf.shape
-    boxes = decode_locations(loc, priors, center_variance, size_variance)  # [B, P, 4]
-    scores = conf[..., 1:].transpose(1, 2).reshape(B * (C - 1), P)
-    rows_boxes = boxes[:, None].expand(B, C - 1, P, 4).reshape(B * (C - 1), P, 4)
-    b, s, v = _nms_rows(scores, rows_boxes, prob_threshold, iou_threshold,
-                        candidate_size, top_k)
+    _count("calls")
+    with _Range(SPAN) if _autograd_profiler._is_profiler_enabled else contextlib.nullcontext():
+        conf = torch.as_tensor(conf)
+        loc = torch.as_tensor(loc, device=conf.device)
+        priors = torch.as_tensor(priors, device=conf.device)
+        B, P, C = conf.shape
+        boxes = decode_locations(loc, priors, center_variance, size_variance)  # [B, P, 4]
+        scores = conf[..., 1:].transpose(1, 2).reshape(B * (C - 1), P)
+        rows_boxes = boxes[:, None].expand(B, C - 1, P, 4).reshape(B * (C - 1), P, 4)
+        b, s, v = _nms_rows(scores, rows_boxes, prob_threshold, iou_threshold,
+                            candidate_size, top_k)
     return (b.reshape(B, C - 1, top_k, 4), s.reshape(B, C - 1, top_k),
             v.reshape(B, C - 1, top_k))
 

@@ -47,8 +47,17 @@ where a value lands on such a tie, and equal the JAX engine's under the
 same options bit for bit.
 
 ``profile_barriers`` has no counterpart: it stops XLA fusing depthwise
-convs into their neighbours for a trace, and eager PyTorch fuses nothing;
-per-node device rows come from ``dfq_tpu_torch/tools/profile_forward.py``.
+convs into their neighbours for a trace, and eager PyTorch fuses nothing.
+While a ``torch.profiler`` runs, and only then, the forward opens one
+range per step, ``int8_fused/<kind>:<node>`` (kinds: :data:`STEP_KINDS`),
+and inside the steps the phase ranges ``int8_fused/product`` (a conv's
+exact int8 product, on whichever route), ``int8_fused/requant`` (an input
+edge's requantization) and ``int8_fused/epilogue`` (every other int/float
+conversion of the glue); ``python3 -m portbench.spans`` sums device time
+and idle by them. The ranges are FUNCTION-scope profiler ranges, so each
+device op is tied to them through its launch's correlation and none takes
+a device annotation from a caller's ``record_function``. Always on:
+:attr:`Int8FusedNet.host`, the forward's calls and host seconds.
 
 The int8 tensor carried on an edge uses the CONSUMER's site quantization
 params (:func:`_consumer_plan`). The f32 glue mirrors the forms XLA
@@ -58,13 +67,18 @@ port's logits match the JAX engine's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._C._profiler import _RecordFunctionFast as _Range
+from torch.autograd import profiler as _autograd_profiler
 
 from dfq_tpu_torch.device import resolve_device
 from dfq_tpu_torch.engine.int8 import (
@@ -90,6 +104,34 @@ from dfq_tpu_torch.ops.rounding import (
 )
 
 Grid = Tuple[float, int]
+
+# the kind of each step, fixed when the lowering is built: a kernel (K1,
+# K2, K3), an exact int8 product off the kernels ("conv", on any of
+# ``_route``'s routes), or the glue op the node is
+STEP_KINDS = ("k1", "k2", "k3", "conv", "act", "add", "mean", "spatial", "concat",
+              "fallback", "passthrough")
+PRODUCT, REQUANT, EPILOGUE = "int8_fused/product", "int8_fused/requant", "int8_fused/epilogue"
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _phase(spans: bool, name: str):
+    """A phase range while the forward is traced (``spans``), else nothing."""
+    return _Range(name) if spans else _NO_RANGE
+
+
+class HostTime:
+    """Calls of a function and the host seconds they took, from entry to
+    return, summed under a lock (serving threads share a net)."""
+
+    def __init__(self):
+        self.calls = 0
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def add(self, seconds: float) -> None:
+        with self._lock:
+            self.calls += 1
+            self.seconds += seconds
 
 
 @dataclasses.dataclass
@@ -424,18 +466,20 @@ def _is_dw1(node) -> bool:
             and a["dilation"] == (1, 1))
 
 
-Step = Callable[[Dict[str, Any], set], None]
+# ``step(env, done, spans)``: ``spans`` opens the step's phase ranges
+Step = Callable[[Dict[str, Any], set, bool], None]
 Acc = Callable[[torch.Tensor], torch.Tensor]  # int8 NHWC input -> int32 accumulator
 
 
 @dataclasses.dataclass
 class Lowering:
-    """The packed forward of one resolved :class:`Policy`: the steps, the
-    kernel sites they launch and the exact int8 products of the other
-    lowered layers."""
+    """The packed forward of one resolved :class:`Policy`: the steps as
+    ``(node, kind, step)`` (kind: one of :data:`STEP_KINDS`), the kernel
+    sites they launch and the exact int8 products of the other lowered
+    layers."""
 
     policy: Policy
-    steps: List[Tuple[str, Step]]
+    steps: List[Tuple[str, str, Step]]
     kernel_sites: List[Tuple[str, str, Any]]
     products: Dict[str, Any]
 
@@ -496,7 +540,10 @@ class Int8FusedNet(nn.Module):
     exact int8 product of every other lowered layer, of the route its
     static options pick (a dense-diagonal or s2d conv falls back to its
     plain product where the map's height fails the gate, as in the JAX
-    engine).
+    engine). ``host`` (:class:`HostTime`) sums the forwards and their host
+    seconds; the forward makes no host sync, so where its input's device
+    work is done when it is called, that is the host time spent issuing
+    it.
     """
 
     def __init__(self, model: Int8Model, device=None, plain_kernels: bool = False,
@@ -539,6 +586,7 @@ class Int8FusedNet(nn.Module):
         self.outputs = graph.outputs
         self._packed: Dict[Tuple[str, str], Any] = {}
         self._lowerings: Dict[Policy, Lowering] = {}
+        self.host = HostTime()
         self._use(self.lowering(per_device_batch or 2))
 
     def policy(self, batch: int) -> Policy:
@@ -564,7 +612,7 @@ class Int8FusedNet(nn.Module):
         self._grids: Dict[str, Optional[Grid]] = {self.input_name: None}
         for node in self.model.graph:
             if node.op != "input":
-                self._low.steps.append((node.name, self._build(node)))
+                self._low.steps.append((node.name, *self._build(node)))
         return self._low
 
     # -- packing ----------------------------------------------------------
@@ -588,36 +636,37 @@ class Int8FusedNet(nn.Module):
         return self._pack((name, f"{variant}/{form}"),
                           lambda: pack_int8_product(qweight, node, self.device, form))
 
-    def _build(self, node) -> Step:
+    def _build(self, node) -> Tuple[str, Step]:
+        """``(kind, step)`` of one node."""
         model, name, op = self.model, node.name, node.op
         grids = self._grids
         if op in ("conv", "linear") and name in model.layers:
-            step = self._build_layer(node)
+            kind, step = self._build_layer(node)
             if name in self.blocks:
-                step = self._build_block(node, step)
+                kind, step = self._build_block(node, kind, step)
             grids[name] = self.plan.get(name)
-            return step
+            return kind, step
         if op in ("relu", "relu6"):
-            return self._build_act(node)
+            return "act", self._build_act(node)
         if op == "add":
-            return self._build_add(node)
+            return "add", self._build_add(node)
         if op in ("bn", "identity", "dropout"):
             src = node.inputs[0]
             grids[name] = grids[src]
 
-            def passthrough(env, done, name=name, src=src):
+            def passthrough(env, done, spans, name=name, src=src):
                 env[name] = env[src]  # folded BN is identity
 
-            return passthrough
+            return "passthrough", passthrough
         if op == "global_mean":
-            return self._build_mean(node)
+            return "mean", self._build_mean(node)
         if op in ("maxpool", "pad") and grids[node.inputs[0]] is not None:
-            return self._build_i8_spatial(node)
+            return "spatial", self._build_i8_spatial(node)
         if op == "concat" and self._concat_i8(node):
-            return self._build_concat(node)
-        return self._build_fallback(node)
+            return "concat", self._build_concat(node)
+        return "fallback", self._build_fallback(node)
 
-    def _build_layer(self, node) -> Step:
+    def _build_layer(self, node) -> Tuple[str, Step]:
         name = node.name
         layer = self.model.layers[name]
         src = node.inputs[0]
@@ -636,12 +685,13 @@ class Int8FusedNet(nn.Module):
             self._site(name, "matmul_int8_requant", op)
             run = self._run["matmul_int8_requant"]
 
-            def pw(env, done):
-                xq = get(env)
+            def pw(env, done, spans):
+                with _phase(spans, REQUANT):
+                    xq = get(env)
                 q = run(xq.reshape(-1, xq.shape[-1]), op)
                 self._store(env, name, q.reshape(xq.shape[:-1] + (out_ch,)), sp)
 
-            return pw
+            return "k1", pw
         if self.use_kernels and not is_stem and _is_dw1(node):
             op = self._pack((name, "k2"), lambda: kernels.pack_dw3x3(
                 layer.qweight[:, 0].reshape(out_ch, 9).T, comb, self._bias(layer),
@@ -650,10 +700,12 @@ class Int8FusedNet(nn.Module):
             self._site(name, "dw3x3_int8_requant", op)
             run = self._run["dw3x3_int8_requant"]
 
-            def dw(env, done):
-                self._store(env, name, run(get(env), op), sp)
+            def dw(env, done, spans):
+                with _phase(spans, REQUANT):
+                    xq = get(env)
+                self._store(env, name, run(xq, op), sp)
 
-            return dw
+            return "k2", dw
         # any other layer: an exact integer product by the policy's route,
         # and the epilogue in plain torch
         acc_of = self._route(node, layer, is_stem)
@@ -662,14 +714,18 @@ class Int8FusedNet(nn.Module):
         bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
         zp = layer.in_zp
 
-        def conv(env, done):
-            acc = acc_of(get(env)) - zp * wsum
-            a = acc.to(torch.float32)
-            # f32(acc) * comb + bias: one FMA under XLA:CPU
-            out = a * comb_t if bias is None else fma_f32(a, comb_t, bias)
-            self._emit(env, name, out)
+        def conv(env, done, spans):
+            with _phase(spans, REQUANT):
+                xq = get(env)
+            with _phase(spans, PRODUCT):
+                acc = acc_of(xq)
+            with _phase(spans, EPILOGUE):
+                a = (acc - zp * wsum).to(torch.float32)
+                # f32(acc) * comb + bias: one FMA under XLA:CPU
+                out = a * comb_t if bias is None else fma_f32(a, comb_t, bias)
+                self._emit(env, name, out)
 
-        return conv
+        return "conv", conv
 
     def _is_s2d_stem(self, node) -> bool:
         """A k3s2p1 dense conv on the graph input, under ``stem_s2d`` (the
@@ -763,14 +819,14 @@ class Int8FusedNet(nn.Module):
             return route
         return lambda xq: route(F.pad(xq, (0, cpad - cin), value=zp))
 
-    def _build_block(self, node, unfused: Step) -> Step:
+    def _build_block(self, node, kind: str, unfused: Step) -> Tuple[str, Step]:
         """K3 for a fusable block when its input is int8 and the block fits
         the shared-memory budget at this input size; else the unfused
-        layer-by-layer path (as ``int8_fused.py:431``)."""
+        layer-by-layer path (as ``int8_fused.py:431``), of ``kind``."""
         info = self.blocks[node.name]
         x_grid = self._grids.get(info["x"])
         if x_grid is None:
-            return unfused
+            return kind, unfused
         m = self.model
         Le, Ld, Lp = m.layers[node.name], m.layers[info["dw"]], m.layers[info["pj"]]
         E = Le.qweight.shape[0]
@@ -794,18 +850,18 @@ class Int8FusedNet(nn.Module):
         xname, final, og = info["x"], info["final"], info["out_grid"]
         skip = list(info["skip"]) + [final]
 
-        def block(env, done):
+        def block(env, done, spans):
             v = env[xname]
             _, H, W, _ = v.q.shape
             # v.q is a whole, contiguous tensor (16-byte aligned), for which
             # fused_block_fits answers
             if not kernels.fused_block_fits(H, W, C, E, C2):
-                return unfused(env, done)
+                return unfused(env, done, spans)
             out = run(v.q, op)
             env[final] = out if og is None else QTensor(out, og[0], og[1])
             done.update(skip)
 
-        return block
+        return "k3", block
 
     def _build_act(self, node) -> Step:
         name, src = node.name, node.inputs[0]
@@ -814,10 +870,11 @@ class Int8FusedNet(nn.Module):
         if g is None:
             self._grids[name] = sp
 
-            def act_f32(env, done):
+            def act_f32(env, done, spans):
                 v = env[src]
-                self._emit(env, name, torch.relu(v) if node.op == "relu"
-                           else torch.clamp(v, 0.0, 6.0))
+                out = torch.relu(v) if node.op == "relu" else torch.clamp(v, 0.0, 6.0)
+                with _phase(spans, EPILOGUE):
+                    self._emit(env, name, out)
 
             return act_f32
         self._grids[name] = sp if (sp is not None and sp != g) else g
@@ -826,7 +883,7 @@ class Int8FusedNet(nn.Module):
         lo = g[1]
         hi = 127 if node.op == "relu" else int(np.clip(np.round(6.0 / g[0]) + g[1], -128, 127))
 
-        def act_i8(env, done):
+        def act_i8(env, done, spans):
             v = env[src]
             t = QTensor(torch.clamp(v.q, lo, hi), v.scale, v.zp)
             if sp is not None and sp != (v.scale, v.zp):
@@ -849,8 +906,12 @@ class Int8FusedNet(nn.Module):
                 return fma_f32(q, f32(sp[0]), -f32(sp[1] * sp[0]))
             return v.dequant() if isinstance(v, QTensor) else v
 
-        def add(env, done):
-            self._emit(env, name, operand(env, 0) + operand(env, 1))
+        def add(env, done, spans):
+            with _phase(spans, EPILOGUE):
+                a, b = operand(env, 0), operand(env, 1)
+            out = a + b
+            with _phase(spans, EPILOGUE):
+                self._emit(env, name, out)
 
         return add
 
@@ -871,7 +932,7 @@ class Int8FusedNet(nn.Module):
             prod = self.model.graph[prod.inputs[0]]
         fused_producer = prod.op == "add"
 
-        def mean(env, done):
+        def mean(env, done, spans):
             v = env[src]
             if isinstance(v, QTensor):
                 dq = v.q.to(torch.float32) - v.zp
@@ -904,7 +965,7 @@ class Int8FusedNet(nn.Module):
         self._grids[name] = self._grids[src]
         a = node.attrs
 
-        def spatial_i8(env, done):
+        def spatial_i8(env, done, spans):
             v = env[src]
             if node.op == "maxpool":
                 q = F.max_pool2d(v.q.permute(0, 3, 1, 2).float(), a["window"], a["stride"],
@@ -931,7 +992,7 @@ class Int8FusedNet(nn.Module):
         sps = [_site_params(self.model, f"{name}:in{i}") for i in range(len(node.inputs))]
         axis = node.attrs.get("axis", -1)
 
-        def concat_i8(env, done):
+        def concat_i8(env, done, spans):
             parts = []
             for inp, spi in zip(node.inputs, sps):
                 q_site = QTensor(_requant_i8(env[inp], spi[0], spi[1]), spi[0], spi[1])
@@ -954,7 +1015,7 @@ class Int8FusedNet(nn.Module):
                   1 if node.op in _FALLBACK_SITE_OPS else 0)
         sps = [_site_params(self.model, f"{name}:in{i}") for i in range(n_site)]
 
-        def fallback(env, done):
+        def fallback(env, done, spans):
             ins = []
             for i, inp in enumerate(node.inputs):
                 v = env[inp]
@@ -963,7 +1024,9 @@ class Int8FusedNet(nn.Module):
                     s, zp = sps[i]
                     v = (_quantize_f32(v, s, zp).to(torch.float32) - zp) * f32(s)
                 ins.append(v)
-            self._emit(env, name, apply_op(node, ins, p))
+            out = apply_op(node, ins, p)
+            with _phase(spans, EPILOGUE):
+                self._emit(env, name, out)
 
         return fallback
 
@@ -995,18 +1058,29 @@ class Int8FusedNet(nn.Module):
     def forward(self, x: torch.Tensor, per_device_batch: Optional[int] = None):
         """``x``: f32 NHWC images on the module's device -> f32 logits.
         ``"auto"`` options resolve against ``per_device_batch``, else the
-        module's, else ``x``'s batch."""
+        module's, else ``x``'s batch. While a profiler runs, each step
+        that runs opens its range (module docstring)."""
+        t0 = time.perf_counter()
         low = self._use(self.lowering(per_device_batch or self.per_device_batch or x.shape[0]))
         env: Dict[str, Any] = {self.input_name: x}
         done: set = set()
+        # set while any torch profiler runs; _profiler_enabled() reads the
+        # calling thread's state, which profile_all_threads leaves unset
+        spans = _autograd_profiler._is_profiler_enabled
         with highest_precision():
-            for name, step in low.steps:
-                if name not in done:
-                    step(env, done)
+            for name, kind, step in low.steps:
+                if name in done:
+                    continue
+                if spans:
+                    with _Range(f"int8_fused/{kind}:{name}"):
+                        step(env, done, True)
+                else:
+                    step(env, done, False)
         outs = []
         for o in self.outputs:
             v = env[o]
             outs.append(v.dequant() if isinstance(v, QTensor) else v)
+        self.host.add(time.perf_counter() - t0)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
 

@@ -233,7 +233,7 @@ def test_import_isolation():
         "import dfq_tpu_torch.detection, dfq_tpu_torch.detection.device_nms\n"
         "import dfq_tpu_torch.metrics, dfq_tpu_torch.data.voc, dfq_tpu_torch.models.ssd\n"
         "import dfq_tpu_torch.models.deeplab, dfq_tpu_torch.cli.run_ssd\n"
-        "import dfq_tpu_torch.cli.run_seg, dfq_tpu_torch.tools.profile_forward\n"
+        "import dfq_tpu_torch.cli.run_seg\n"
         "import dfq_tpu_torch.calib, dfq_tpu_torch.calib.distill, dfq_tpu_torch.calib.calibrate\n"
         "import dfq_tpu_torch.calib.recon, dfq_tpu_torch.calib.distill_correct\n"
         "import dfq_tpu_torch.passes.learned_scale, dfq_tpu_torch.cli.run_zeroq\n"
