@@ -19,9 +19,10 @@ Phases, in order; any failure exits non-zero:
 4. the main path: full-width MobileNetV2 with random weights
    (``init_params(seed=0, bn_stats="random")``), the flagship DFQ config
    (``prepare``), ``lower_int8`` and ``Int8FusedNet`` on the card, batch 8
-   at 224x224: the launch counts must read 11 / 1 / 12 per forward, every
-   K1 and K3 launch must have taken the tensor-core variant and the K2
-   launch the strip variant, and the logits must equal (atol 1e-4, same argmax)
+   at 224x224: the launch counts must read 11 / 5 / 12 per forward, every
+   K1 and K3 launch must have taken the tensor-core variant, the stride-1
+   K2 launch the strip variant and the four stride-2 ones (the stride-2
+   depthwise convs) the stride-2 strip variant, and the logits must equal (atol 1e-4, same argmax)
    the same network run with the plain versions on the card;
 5. serving, as a correctness check: 16 single-image requests through
    ``MicroBatcher`` over two batch buckets, each answer equal to its row
@@ -80,10 +81,10 @@ Phases, in order; any failure exits non-zero:
    on the same rows (the same outputs), the bound and padded
    ``torch._int_mm``;
 12. SSD-Lite 300x300 (21 classes, 3000 priors), random weights from the
-   seed, the flagship config with the detection flags: 30 / 11 / 12
+   seed, the flagship config with the detection flags: 30 / 19 / 12
    kernel sites, K1 at all 30 through its resident ``mma`` variant (the 6
-   class heads, N = 126, on weights padded to 128), K2 ``strip``, K3
-   ``mma``; every kernel equal to its plain version at every site at batch
+   class heads, N = 126, on weights padded to 128), K2 ``strip`` and, at
+   the 8 stride-2 depthwise convs, ``strip_s2``, K3 ``mma``; every kernel equal to its plain version at every site at batch
    8 and 3 and, at each kernel's largest sites and every class head, 128;
    the batch-8 forward bit-equal to the plain-kernel net, no plain version run through
    a wrapper; the baseline engine on the card equal to itself on the CPU
@@ -114,7 +115,8 @@ Phases, in order; any failure exits non-zero:
    two distilled batches, on the card against the CPU: at least 90% of the
    sites within one fake-quant step, every one within 2% of its span (the
    self-quant forwards flip ties); ``lower_int8`` and ``Int8FusedNet`` under those
-   ranges: 11 / 1 / 12 launches, K1 and K3 ``mma``, K2 ``strip``, the
+   ranges: 11 / 5 / 12 launches, K1 and K3 ``mma``, K2 ``strip`` and
+   ``strip_s2``, the
    forward bit-equal to the plain-kernel net, every kernel bit-equal to its
    plain version at every site at batch 8 and 3; ``run_cls --distill_range
    --engine fused --dis_batch_size 16 --dis_num_batch 1`` in-process with
@@ -137,7 +139,7 @@ Phases, in order; any failure exits non-zero:
    fused --save-artifact D --aot-batch 128`` in-process; a fresh Python
    process whose ``nvcc`` is unreachable and whose build directory is
    empty loads ``load_aot_forward(D)`` and runs batch 128: its logits
-   bit-equal to the exporting process's, 11 / 1 / 12 launches, nothing
+   bit-equal to the exporting process's, 11 / 5 / 12 launches, nothing
    built; the same from a fresh process that builds the kernels with
    ``nvcc`` into an empty directory; both processes' seconds from start
    to first logits and the payload's bytes; a ``meta.json`` with another
@@ -150,7 +152,8 @@ Phases, in order; any failure exits non-zero:
    ranges calibrated on the card over two seeded batches: the data-free
    range setter refuses BN-less graphs, as the reference does). For each:
    the kernel sites and launches equal to the JAX fused engine's
-   ``pallas_call`` counts (``ZOO``), every site bit-equal to its plain
+   ``pallas_call`` counts (``ZOO``) and K2 at the graph's stride-2
+   depthwise convs (:func:`stride2_dw_sites`), every site bit-equal to its plain
    version at the model's batch and at batch 3, the forward bit-equal to
    the plain-kernel net with outputs of the expected shapes, the baseline
    engine on the card against the CPU within ``ENGINE_RTOL`` (DeepLab at
@@ -165,7 +168,7 @@ Phases, in order; any failure exits non-zero:
    name a device more than once): MobileNetV2 224x224 at b128 through
    ``make_sharded_forward`` and ``make_sharded_eval`` (fused engine) on
    ``data_mesh()`` and on 4 and 3 shards of the card (b32; 43 / 43 / 42):
-   the logits bit-equal to the single forward, the counters equal, 11 / 1
+   the logits bit-equal to the single forward, the counters equal, 11 / 5
    / 12 launches a shard, every kernel site bit-equal to its plain version
    at b32 and b42, the forward's ms beside the single forward's at the
    global and the shard batches; 6 host batches of b128 through
@@ -383,9 +386,10 @@ def work(kernel: str, op, shape, out_bytes: int):
         N = op.n_out  # not the packed weight's rows, padded to a multiple of 8
         return M * K + N * K + 12 * N + M * N * out_bytes, 2 * M * N * K
     if kernel == "dw3x3_int8_requant":
-        n = int(np.prod(shape))
-        C = shape[-1]
-        return n + 17 * C + n * out_bytes, 2 * 9 * n
+        N, H, W, C = shape
+        s = op.stride
+        n_out = N * -(-H // s) * -(-W // s) * C
+        return N * H * W * C + 17 * C + n_out * out_bytes, 2 * 9 * n_out
     N, H, W, C = shape
     E, C2 = op.E, op.C2
     px = N * H * W
@@ -441,7 +445,7 @@ def library_call(kernel: str, op, x):
         C = x.shape[-1]
         xf = x.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
         wf = op.taps.t().reshape(C, 1, 3, 3).float().contiguous()
-        return (lambda: F.conv2d(xf, wf, padding=1, groups=C)), ""
+        return (lambda: F.conv2d(xf, wf, stride=op.stride, padding=1, groups=C)), ""
     return None, ""
 
 
@@ -834,7 +838,8 @@ def phase_exact_products(paths, gen) -> dict:
 def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
     """Every site at each of ``batches``; at ``big_batch`` the K1 site with
     the most rows, every K1 site whose N is not a multiple of 8 (stored at
-    any byte width), the largest K2 site, and K3's first and last."""
+    any byte width), the largest K2 site of each stride, and K3's first and
+    last."""
     by = {k: [s for s in net.kernel_sites if s[1] == k] for k in ck.LAUNCHES}
     shapes1 = site_inputs(graph, 1, size)
 
@@ -849,8 +854,10 @@ def kernel_site_checks(net, graph, size, batches, big_batch, ck) -> list:
         k1 = by["matmul_int8_requant"]
         big.append(max(k1, key=rows))
         big += [s for s in k1 if s[2].n_out % 8 and s not in big]
-    if by["dw3x3_int8_requant"]:
-        big.append(max(by["dw3x3_int8_requant"], key=elems))
+    for stride in (1, 2):
+        k2 = [s for s in by["dw3x3_int8_requant"] if s[2].stride == stride]
+        if k2:
+            big.append(max(k2, key=elems))
     if by["fused_block_int8"]:
         big += [by["fused_block_int8"][0], by["fused_block_int8"][-1]]
     return [(s, b) for b in batches for s in net.kernel_sites] + [(s, big_batch) for s in big]
@@ -923,7 +930,7 @@ def phase_ssd(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True, params_f32=residual)
     base = Int8Net(model, residual, device=DEVICE)
     kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
-    if kinds != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11, "fused_block_int8": 12}:
+    if kinds != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 19, "fused_block_int8": 12}:
         raise AssertionError(f"SSD-Lite kernel sites {kinds}")
     checks = kernel_site_checks(net, graph, SSD_SIZE, (BATCH, ODD_BATCH), BIG_BATCH, ck)
     hold_sites(graph, SSD_SIZE, checks, wrappers, max_err, gen)
@@ -938,10 +945,11 @@ def phase_ssd(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     inputs = (images - np.float32(127.0)) / np.float32(128.0)
     x8 = torch.from_numpy(inputs[:BATCH]).to(DEVICE)
     (conf, loc), launches, variants = launch_forward(ck, net, x8)
-    if launches != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11, "fused_block_int8": 12}:
+    if launches != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 19, "fused_block_int8": 12}:
         raise AssertionError(f"SSD-Lite launches {launches}")
     if variants != {"matmul_int8_requant": {"mma": 30, "stream": 0, "dp4a": 0},
-                    "dw3x3_int8_requant": {"strip": 11, "general": 0},
+                    "dw3x3_int8_requant": {"strip": 11, "general": 0, "strip_s2": 8,
+                                           "general_s2": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"SSD-Lite kernel variants {variants}")
     if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
@@ -1259,11 +1267,12 @@ def phase_calibration(ck, wrappers, max_err: dict, gen, images) -> dict:
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
     x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
     logits, launches, variants = launch_forward(ck, net, x8)
-    if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
+    if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                     "fused_block_int8": 12}:
         raise AssertionError(f"calibrated path launches {launches}")
     if variants != {"matmul_int8_requant": {"mma": 11, "stream": 0, "dp4a": 0},
-                    "dw3x3_int8_requant": {"strip": 1, "general": 0},
+                    "dw3x3_int8_requant": {"strip": 1, "general": 0, "strip_s2": 4,
+                                           "general_s2": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"calibrated path kernel variants {variants}")
     if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
@@ -1499,7 +1508,7 @@ def phase_aot(root: Path) -> dict:
             raise AssertionError(f"the AOT cold start built {runs['aot']['built']}")
         if len(runs["nvcc"]["built"]) != 3:
             raise AssertionError(f"the nvcc cold start built {runs['nvcc']['built']}")
-        if runs["aot"]["launches"] != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
+        if runs["aot"]["launches"] != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                                        "fused_block_int8": 12}:
             raise AssertionError(f"AOT forward launches {runs['aot']['launches']}")
         # a payload made for another card is refused
@@ -1542,6 +1551,17 @@ ZOO = {
 }
 ZOO_PRIORS = {"mobilenet_v1_ssd": 3000, "mobilenet_v1_ssd_lite": 3000,
               "squeezenet_ssd_lite": 2568, "fpn_mobilenet_v1_ssd": 3000, "vgg16_ssd": 8732}
+
+
+def stride2_dw_sites(model) -> int:
+    """The lowered 3x3 depthwise convs of stride 2 and padding 1, read from
+    the graph: K2 takes them beside the JAX routing's sites (JAX runs them
+    as XLA convs)."""
+    return sum(1 for n in model.graph if n.op == "conv" and n.name in model.layers
+               and n.attrs["kernel"] == (3, 3)
+               and n.attrs["groups"] == n.attrs["in_ch"] == n.attrs["out_ch"]
+               and n.attrs["stride"] == (2, 2) and n.attrs["padding"] == (1, 1)
+               and n.attrs["dilation"] == (1, 1))
 
 
 def zoo_model(name):
@@ -1606,6 +1626,7 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
         ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True, params_f32=residual)
         base = Int8Net(model, residual, device=DEVICE)
         want = dict(zip(wrappers, jax_sites))
+        want["dw3x3_int8_requant"] += stride2_dw_sites(model)
         kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
         if kinds != want:
             raise AssertionError(f"{name} kernel sites {kinds}, the JAX routing {want}")
@@ -1725,7 +1746,7 @@ def sync_warnings(fn) -> list:
 def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: dict) -> dict:
     """18. ``dfq_tpu_torch.parallel`` at full width on the card: the
     data-parallel fused forward and eval of MobileNetV2 224x224 at b128 on
-    1, 4 and 3 shards (bit-equal to the single forward, 11 / 1 / 12
+    1, 4 and 3 shards (bit-equal to the single forward, 11 / 5 / 12
     launches a shard, every kernel site bit-equal to its plain version at
     the shard batches), the stream against the synchronous loop, DeepLab's
     sharded confusion matrix, the sharded distillation step, the
@@ -1764,7 +1785,7 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
     detail, launches_by_path = {}, {}
     model, residual, net = main_path["model"], main_path["residual"], main_path["net"]
     graph = model.graph
-    per_shard = {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1, "fused_block_int8": 12}
+    per_shard = {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5, "fused_block_int8": 12}
     card = data_mesh().devices[0]  # the card, as a mesh names it
     smi = nvidia_smi_line()
 
@@ -2036,8 +2057,9 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
 # each against the default net; the paths and batches they run at; and the
 # launches a forward makes under the kernel configurations, equal to the JAX
 # fused engine's ``pallas_call`` counts under the same options (read from its
-# trace by tests/test_torch_policies_configs.py). The conv policies move no
-# kernel site: they launch as the default
+# trace by tests/test_torch_policies_configs.py) and, where the kernels run,
+# K2 at the graph's stride-2 depthwise convs, which JAX runs as XLA convs.
+# The conv policies move no kernel site: they launch as the default
 POLICIES = {
     "stem_s2d": {"stem_s2d": True},
     "dense32_h160": {"dw_dense_max_ch": 32, "dw_dense_max_h": 160},
@@ -2051,11 +2073,11 @@ POLICIES = {
 }
 # (K1, K2, K3) launches a forward, by path and kernel configuration
 POLICY_LAUNCHES = {
-    "mobilenet_v2": {"default": (11, 1, 12), "unfused": (35, 13, 0),
+    "mobilenet_v2": {"default": (11, 5, 12), "unfused": (35, 17, 0),
                      "no_kernels": (0, 0, 12), "no_kernels_unfused": (0, 0, 0)},
     "resnet18": {"default": (1, 0, 0), "unfused": (1, 0, 0),
                  "no_kernels": (0, 0, 0), "no_kernels_unfused": (0, 0, 0)},
-    "ssd_lite": {"default": (30, 11, 12), "unfused": (54, 23, 0),
+    "ssd_lite": {"default": (30, 19, 12), "unfused": (54, 31, 0),
                  "no_kernels": (0, 0, 12), "no_kernels_unfused": (0, 0, 0)},
     "deeplab_mnv2": {"default": (38, 0, 0), "unfused": (38, 0, 0),
                      "no_kernels": (0, 0, 0), "no_kernels_unfused": (0, 0, 0)},
@@ -2285,14 +2307,14 @@ def main() -> int:
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
     wrappers = wrappers_of(ck)
     kinds = {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k) for k in wrappers}
-    if kinds != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1, "fused_block_int8": 12}:
+    if kinds != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5, "fused_block_int8": 12}:
         raise AssertionError(f"main path kernel sites {kinds}")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     # 3. every kernel against its plain version at every main-path site,
     # again at an odd batch, and at batch 128 where the inputs are largest
-    # (the two 1.6 M-row K1 sites, the K2 site) and for K3's largest and
+    # (the two 1.6 M-row K1 sites, the K2 sites) and for K3's largest and
     # widest blocks
     max_err = dict.fromkeys(wrappers, 0.0)
     k1 = [s for s in net.kernel_sites if s[1] == "matmul_int8_requant"]
@@ -2326,11 +2348,12 @@ def main() -> int:
         variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
         ref = ref_net(x8)
         torch.cuda.synchronize()
-    if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1,
+    if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                     "fused_block_int8": 12}:
         raise AssertionError(f"main path launches {launches}")
     if variants != {"matmul_int8_requant": {"mma": 11, "stream": 0, "dp4a": 0},
-                    "dw3x3_int8_requant": {"strip": 1, "general": 0},
+                    "dw3x3_int8_requant": {"strip": 1, "general": 0, "strip_s2": 4,
+                                           "general_s2": 0},
                     "fused_block_int8": {"mma": 12, "general": 0}}:
         raise AssertionError(f"main path kernel variants {variants}")
     if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):

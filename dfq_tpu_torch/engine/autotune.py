@@ -36,7 +36,7 @@ __all__ = ["dw_policy_candidates", "autotune_dw_policy", "model_signature", "tim
 
 # folded into every signature: a change to the engine's lowerings or to the
 # candidates' meaning must bump it, so that no cached winner outlives them
-SCHEMA_VERSION = "dfq_tpu_torch.int8_fused/policies-1"
+SCHEMA_VERSION = "dfq_tpu_torch.int8_fused/policies-2"
 
 
 def dw_policy_candidates(per_device_batch: int) -> List[Dict[str, Any]]:

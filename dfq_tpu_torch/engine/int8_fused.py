@@ -7,15 +7,18 @@ conv epilogue, so inter-layer tensors stay int8. Under the default options
 fuse_blocks=True``):
 
 - pointwise convs and linear layers run on K1 (``matmul_int8_requant``),
-  stride-1 depthwise 3x3 convs on K2 (``dw3x3_int8_requant``), and each
-  inverted-residual chain ``pw-expand -> relu(6) -> dw3x3 s1 -> relu(6)
-  -> pw-project [-> add]`` whose site grids line up on K3
+  depthwise 3x3 convs of stride 1 (pad 1) on K2 (``dw3x3_int8_requant``),
+  and each inverted-residual chain ``pw-expand -> relu(6) -> dw3x3 s1 ->
+  relu(6) -> pw-project [-> add]`` whose site grids line up on K3
   (``fused_block_int8``) — the three kernels of
   ``dfq_tpu_torch/ops/cuda_int8.py``;
-- other lowered convs (MobileNetV2's k3s2 stem and stride-2 depthwise
-  convs, ResNet-18's stem, 3x3 and downsample convs) run as exact integer
-  convs (:func:`~dfq_tpu_torch.engine.int8.int8_conv`) with the same
-  epilogue in plain PyTorch;
+- depthwise 3x3 convs of stride 2 (pad 1) with an int8 output run on K2's
+  stride-2 variant, which rounds as the glue below does: the JAX engine
+  runs them as XLA convs, and the port's outputs are its bit for bit;
+- other lowered convs (MobileNetV2's k3s2 stem, ResNet-18's stem, 3x3 and
+  downsample convs, DeepLab's explicitly padded depthwise convs) run as
+  exact integer convs (:func:`~dfq_tpu_torch.engine.int8.int8_conv`) with
+  the same epilogue in plain PyTorch;
 - ReLU is a clamp at the zero point and ReLU6 a clamp at quant(6), both in
   the int domain; residual adds dequantize both operands through their
   site grids and requantize; folded BN/identity pass int8 through;
@@ -466,6 +469,14 @@ def _is_dw1(node) -> bool:
             and a["dilation"] == (1, 1))
 
 
+def _is_dw2(node) -> bool:
+    a = node.attrs
+    return (node.op == "conv" and a["kernel"] == (3, 3)
+            and a["groups"] == a["in_ch"] == a["out_ch"]
+            and a["stride"] == (2, 2) and a["padding"] == (1, 1)
+            and a["dilation"] == (1, 1))
+
+
 # ``step(env, done, spans)``: ``spans`` opens the step's phase ranges
 Step = Callable[[Dict[str, Any], set, bool], None]
 Acc = Callable[[torch.Tensor], torch.Tensor]  # int8 NHWC input -> int32 accumulator
@@ -505,7 +516,9 @@ class Int8FusedNet(nn.Module):
     whatever ``use_pallas`` says); then the s2d stem (``stem_s2d``: a
     k3s2p1 conv on the graph input, even input height); then the kernel
     sites (``use_kernels``, JAX's ``use_pallas``: pointwise convs and
-    linear layers on K1, stride-1 depthwise 3x3 on K2); then, for a
+    linear layers on K1, depthwise 3x3 of stride 1 on K2, and of stride 2
+    with an int8 output on K2's stride-2 variant, where the JAX engine's
+    XLA conv stands and which gives its outputs); then, for a
     depthwise conv of at most ``dw_dense_max_ch`` channels on a map at
     most ``dw_dense_max_h`` high, the dense-diagonal conv; then channel
     padding (``chpad_k3``, :func:`_chpad_target`); then a dense 3x3 conv as
@@ -692,11 +705,12 @@ class Int8FusedNet(nn.Module):
                 self._store(env, name, q.reshape(xq.shape[:-1] + (out_ch,)), sp)
 
             return "k1", pw
-        if self.use_kernels and not is_stem and _is_dw1(node):
+        if self.use_kernels and not is_stem and (
+                _is_dw1(node) or (_is_dw2(node) and sp is not None)):
             op = self._pack((name, "k2"), lambda: kernels.pack_dw3x3(
                 layer.qweight[:, 0].reshape(out_ch, 9).T, comb, self._bias(layer),
                 zp_in=layer.in_zp, s_out=float(s_out), zp_out=int(zp_out),
-                out_f32=sp is None, device=self.device))
+                out_f32=sp is None, stride=node.attrs["stride"][0], device=self.device))
             self._site(name, "dw3x3_int8_requant", op)
             run = self._run["dw3x3_int8_requant"]
 

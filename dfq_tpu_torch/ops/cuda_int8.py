@@ -5,7 +5,8 @@ Pallas TPU kernels of ``dfq_tpu/ops/pallas_int8.py``:
 
 - :func:`matmul_int8_requant` (K1): pointwise convs and the classifier
   as an ``[M, K] x [K, N]`` int8 matmul with the requant epilogue fused.
-- :func:`dw3x3_int8_requant` (K2): NHWC depthwise 3x3, stride 1.
+- :func:`dw3x3_int8_requant` (K2): NHWC depthwise 3x3, stride 1; and, with
+  no TPU kernel behind it, stride 2 (:func:`pack_dw3x3`).
 - :func:`fused_block_int8` (K3): one whole inverted-residual block.
 
 Each kernel has, in this module:
@@ -21,7 +22,8 @@ Each kernel has, in this module:
   in :data:`PLAIN_CALLS`);
 - its launch plan, made here in Python and handed to the kernel, where
   the CPU tests reach it: which variant a shape takes (K1: tensor-core
-  ``mma`` or ``stream``, or ``dp4a``; K2: ``strip`` or ``general``; K3: ``mma`` or
+  ``mma`` or ``stream``, or ``dp4a``; K2: ``strip`` or ``general``, at stride 2
+  ``strip_s2`` or ``general_s2``; K3: ``mma`` or
   ``general``; counted in :data:`VARIANTS`), tile and shared-memory
   layout, grid (:func:`matmul_plan`, :func:`dw3x3_plan`,
   :func:`fused_block_plan`);
@@ -63,7 +65,7 @@ LAUNCHES = {"matmul_int8_requant": 0, "dw3x3_int8_requant": 0, "fused_block_int8
 PLAIN_CALLS = dict.fromkeys(LAUNCHES, 0)
 # launches by kernel variant, which a shape and its alignment alone decide
 VARIANTS = {"matmul_int8_requant": {"mma": 0, "stream": 0, "dp4a": 0},
-            "dw3x3_int8_requant": {"strip": 0, "general": 0},
+            "dw3x3_int8_requant": {"strip": 0, "general": 0, "strip_s2": 0, "general_s2": 0},
             "fused_block_int8": {"mma": 0, "general": 0}}
 _count_lock = threading.Lock()
 
@@ -506,7 +508,7 @@ def matmul_int8_requant(x, w, scale, bias, wsum, *, zp_in: int, s_out: float,
 
 
 # ---------------------------------------------------------------------------
-# K2: depthwise 3x3 (stride 1, pad 1) + requant
+# K2: depthwise 3x3 (stride 1 or 2, pad 1) + requant
 
 # the strip variant of csrc/dw3x3_int8_requant.cu: output pixels along W
 # per thread (its STRIP), threads per block (its THREADS), the heights of
@@ -520,7 +522,8 @@ DW_THREADS_PER_SM = 256
 
 @dataclasses.dataclass
 class Dw3x3Requant:
-    """Packed operands of one :func:`dw3x3_int8_requant` call site."""
+    """Packed operands of one :func:`dw3x3_int8_requant` call site, of
+    ``stride`` 1 or 2 (:func:`pack_dw3x3`)."""
 
     taps: torch.Tensor  # [9, C] int8, HW-major
     scale: torch.Tensor  # [C] f32
@@ -532,6 +535,7 @@ class Dw3x3Requant:
     lo: float
     hi: float
     out_f32: bool
+    stride: int = 1
 
     def __post_init__(self):
         C = self.taps.shape[1]
@@ -543,9 +547,20 @@ class Dw3x3Requant:
 
 
 def pack_dw3x3(taps, scale, bias, *, zp_in: int, s_out: float, zp_out: int,
-               act: str = "none", out_f32: bool = False, device=None) -> Dw3x3Requant:
-    """``taps``: ``[9, C]`` int8, HW-major. ``device=None`` means CUDA."""
+               act: str = "none", out_f32: bool = False, stride: int = 1,
+               device=None) -> Dw3x3Requant:
+    """``taps``: ``[9, C]`` int8, HW-major. ``device=None`` means CUDA.
+
+    ``stride=2`` packs a site of the engine's stride-2 depthwise convs,
+    which the JAX engine runs as XLA convs with its glue epilogue: the
+    kernel rounds as that glue does (``inv_out`` is ``f32(1 / f32(s_out))``,
+    the quantize clips on the uint8 grid), with no activation clamp and an
+    int8 output only."""
     device = resolve_device(device)
+    if stride not in (1, 2):
+        raise ValueError(f"dw3x3_int8_requant: stride {stride}; expected 1 or 2")
+    if stride == 2 and (act != "none" or out_f32):
+        raise ValueError("dw3x3_int8_requant: stride 2 takes act='none' and an int8 output")
     lo, hi = _ACT[act]
     taps = _on(taps, device, torch.int8)
     return Dw3x3Requant(
@@ -554,16 +569,17 @@ def pack_dw3x3(taps, scale, bias, *, zp_in: int, s_out: float, zp_out: int,
         bias=_on(bias, device, torch.float32),
         # |zp_in| <= 128 and |tapsum| <= 9 * 128: far inside int32
         zp_tapsum=(int(zp_in) * taps.to(torch.int32).sum(0)).to(torch.int32).contiguous(),
-        zp_in=int(zp_in), inv_out=recip_host(s_out), zp_out=int(zp_out),
-        lo=lo, hi=hi, out_f32=bool(out_f32),
+        zp_in=int(zp_in), inv_out=(recip_host if stride == 1 else recip_xla)(s_out),
+        zp_out=int(zp_out), lo=lo, hi=hi, out_f32=bool(out_f32), stride=stride,
     )
 
 
 @dataclasses.dataclass(frozen=True)
 class Dw3x3Plan:
     """How one K2 call is launched: ``"strip"`` (a thread per channel
-    word, ``DW_STRIP`` pixels and ``rows`` rows) or ``"general"`` (a
-    thread per output byte), and the grid."""
+    word, ``DW_STRIP`` output pixels and ``rows`` output rows) or
+    ``"general"`` (a thread per output byte), ``_s2`` at stride 2, and the
+    grid."""
 
     variant: str
     grid: Tuple[int, int]
@@ -571,38 +587,54 @@ class Dw3x3Plan:
 
 
 def dw3x3_plan(N: int, H: int, W: int, C: int, aligned: bool = True,
-               sms: int = H100_SMS) -> Dw3x3Plan:
+               sms: int = H100_SMS, stride: int = 1) -> Dw3x3Plan:
     """The strip variant takes channel counts that are whole 32-bit words
-    when every operand is 16-byte aligned: grid x covers the (row slab,
-    strip, channel word) items of one image, grid y walks the images. A
-    thread walks the tallest slab of ``DW_ROWS`` (a tall slab re-reads
-    fewer halo rows) that still leaves ``DW_THREADS_PER_SM`` threads for
-    every SM, else the shortest."""
+    when every operand is 16-byte aligned: grid x covers the (output row
+    slab, strip, channel word) items of one image, grid y walks the
+    images. A thread walks the tallest slab of ``DW_ROWS`` (a tall slab
+    re-reads fewer halo rows) that still leaves ``DW_THREADS_PER_SM``
+    threads for every SM, else the shortest. ``H``, ``W``: the input's."""
+    OH, OW = -(-H // stride), -(-W // stride)
+    suffix = "" if stride == 1 else f"_s{stride}"
     if C % 4 == 0 and aligned:
         for rows in DW_ROWS:
-            items = -(-H // rows) * -(-W // DW_STRIP) * (C // 4)
+            items = -(-OH // rows) * -(-OW // DW_STRIP) * (C // 4)
             if items * N >= sms * DW_THREADS_PER_SM or rows == DW_ROWS[-1]:
                 break
         if 0 < items < 2 ** 31 - DW_THREADS:
-            return Dw3x3Plan("strip", (-(-items // DW_THREADS), max(1, min(N, 65535))), rows)
-    blocks = -(-N * H * W * C // DW_THREADS)
-    return Dw3x3Plan("general", (max(1, min(blocks, 1 << 30)), 1))
+            return Dw3x3Plan("strip" + suffix,
+                             (-(-items // DW_THREADS), max(1, min(N, 65535))), rows)
+    blocks = -(-N * OH * OW * C // DW_THREADS)
+    return Dw3x3Plan("general" + suffix, (max(1, min(blocks, 1 << 30)), 1))
 
 
-def _dw3x3_acc(x_minus_zp: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
-    """int32 9-tap MAC over an NHWC tensor already shifted by its zero
-    point; the zero padding is the zero point in the int8 domain."""
-    _, H, W, _ = x_minus_zp.shape
-    xp = F.pad(x_minus_zp, (0, 0, 1, 1, 1, 1))
-    taps = taps.to(torch.int32)
-    acc = torch.zeros_like(x_minus_zp)
+def _dw3x3_taps(xp: torch.Tensor, stride: int):
+    """The 9 stride-``stride`` views of a once-padded NHWC tensor, in tap
+    order (ky, kx), each one output map."""
+    _, hp, wp, _ = xp.shape
+    oh, ow = (hp - 3) // stride + 1, (wp - 3) // stride + 1
     for ky in range(3):
         for kx in range(3):
-            acc += xp[:, ky:ky + H, kx:kx + W, :] * taps[ky * 3 + kx]
+            yield ky * 3 + kx, xp[:, ky:ky + stride * (oh - 1) + 1:stride,
+                                  kx:kx + stride * (ow - 1) + 1:stride]
+
+
+def _dw3x3_acc(x_minus_zp: torch.Tensor, taps: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """int32 9-tap MAC over an NHWC tensor already shifted by its zero
+    point; the zero padding is the zero point in the int8 domain."""
+    taps = taps.to(torch.int32)
+    acc = None
+    for t, view in _dw3x3_taps(F.pad(x_minus_zp, (0, 0, 1, 1, 1, 1)), stride):
+        acc = view * taps[t] if acc is None else acc.add_(view * taps[t])
     return acc
 
 
 def _dw3x3_epilogue(acc: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor:
+    if op.stride == 2:
+        # the engine's glue epilogue (engine/int8_fused.py conv steps):
+        # one FMA, then the quantize of its _emit
+        return quant_u8(fma_f32(acc.to(torch.float32), op.scale, op.bias), op.inv_out,
+                        op.zp_out)
     # the Pallas MAC is f32 and exact below 2^24, as is this conversion
     f = torch.clamp(fma_f32(acc.to(torch.float32), op.scale, op.bias), op.lo, op.hi)
     if op.out_f32:
@@ -613,7 +645,7 @@ def _dw3x3_epilogue(acc: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor:
 
 
 def dw3x3_int8_requant_plain(x: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor:
-    return _dw3x3_epilogue(_dw3x3_acc(x.to(torch.int32) - op.zp_in, op.taps), op)
+    return _dw3x3_epilogue(_dw3x3_acc(x.to(torch.int32) - op.zp_in, op.taps, op.stride), op)
 
 
 def dw3x3_int8_requant_strip_plain(x: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor:
@@ -622,18 +654,17 @@ def dw3x3_int8_requant_strip_plain(x: torch.Tensor, op: Dw3x3Requant) -> torch.T
     point leaves as one subtraction of ``zp_in * tapsum``:
     ``sum (x - zp) t = sum x t - zp sum t``. Equal to
     :func:`dw3x3_int8_requant_plain` bit for bit."""
-    _, H, W, _ = x.shape
     xp = F.pad(x.to(torch.int32), (0, 0, 1, 1, 1, 1), value=op.zp_in)
     taps = op.taps.to(torch.int32)
-    acc = -op.zp_tapsum.expand(x.shape).clone()
-    for ky in range(3):
-        for kx in range(3):
-            acc += xp[:, ky:ky + H, kx:kx + W, :] * taps[ky * 3 + kx]
+    acc = -op.zp_tapsum
+    for t, view in _dw3x3_taps(xp, op.stride):
+        acc = acc + view * taps[t]
     return _dw3x3_epilogue(acc, op)
 
 
 def dw3x3_int8_requant_packed(x: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor:
-    """``x [N, H, W, C]`` int8 -> same shape, int8 (or f32)."""
+    """``x [N, H, W, C]`` int8 -> ``[N, ceil(H / s), ceil(W / s), C]`` int8
+    (or f32), ``s`` the site's stride."""
     name = "dw3x3_int8_requant"
     if not _route(x, name):
         return dw3x3_int8_requant_plain(x, op)
@@ -642,17 +673,22 @@ def dw3x3_int8_requant_packed(x: torch.Tensor, op: Dw3x3Requant) -> torch.Tensor
         raise ValueError(f"{name}: expected NHWC input, got shape {tuple(x.shape)}")
     N, H, W, _ = x.shape
     _check(name + " x", x, torch.int8, (N, H, W, C), op.taps.device)
-    out = torch.empty((N, H, W, C), dtype=torch.float32 if op.out_f32 else torch.int8,
-                      device=x.device)
+    s = op.stride
+    out = torch.empty((N, -(-H // s), -(-W // s), C),
+                      dtype=torch.float32 if op.out_f32 else torch.int8, device=x.device)
     plan = dw3x3_plan(N, H, W, C,
                       _aligned16(x, out, op.taps, op.scale, op.bias, op.zp_tapsum),
-                      _sm_count(x.device))
+                      _sm_count(x.device), s)
+    operands = (x.data_ptr(), op.taps.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
+                op.zp_tapsum.data_ptr(), out.data_ptr(), N, H, W, C, op.zp_in, op.inv_out)
     with _launch_on(x.device):
-        err = _fn("dfq_dw3x3_int8_requant")(
-            x.data_ptr(), op.taps.data_ptr(), op.scale.data_ptr(), op.bias.data_ptr(),
-            op.zp_tapsum.data_ptr(), out.data_ptr(), N, H, W, C, op.zp_in, op.inv_out,
-            float(op.zp_out), op.lo, op.hi, int(op.out_f32), int(plan.variant == "strip"),
-            DW_STRIP, plan.rows, plan.grid[0], plan.grid[1], _stream(x.device))
+        launch = (int(plan.variant.startswith("strip")), DW_STRIP, plan.rows, plan.grid[0],
+                  plan.grid[1], _stream(x.device))
+        if s == 1:
+            err = _fn("dfq_dw3x3_int8_requant")(
+                *operands, float(op.zp_out), op.lo, op.hi, int(op.out_f32), *launch)
+        else:
+            err = _fn("dfq_dw3x3_s2_int8_requant")(*operands, float(op.zp_out + 128), *launch)
     _raise_on(err, name)
     _count_launch(name, plan.variant)
     return out
@@ -1168,6 +1204,8 @@ _SIGNATURES = {
         "matmul_int8_requant.cu", _I, [ctypes.POINTER(_MatmulArgs), _P]),
     "dfq_dw3x3_int8_requant": (
         "dw3x3_int8_requant.cu", _I, [_P] * 6 + [_I] * 5 + [_F] * 4 + [_I] * 6 + [_P]),
+    "dfq_dw3x3_s2_int8_requant": (
+        "dw3x3_int8_requant.cu", _I, [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 5 + [_P]),
     "dfq_fused_block_int8": (
         "fused_block_int8.cu", _I, [ctypes.POINTER(_FusedBlockArgs), _P]),
 }

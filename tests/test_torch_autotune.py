@@ -94,7 +94,7 @@ def test_signature_stable_and_keyed(tiny, monkeypatch):
     monkeypatch.setattr(tat, "device_name", lambda device=None: "NVIDIA H100 80GB HBM3")
     assert model_signature(model, 8, device="cpu") != sig
     monkeypatch.undo()
-    monkeypatch.setattr(tat, "SCHEMA_VERSION", "dfq_tpu_torch.int8_fused/policies-2")
+    monkeypatch.setattr(tat, "SCHEMA_VERSION", tat.SCHEMA_VERSION + "-next")
     assert model_signature(model, 8, device="cpu") != sig
     assert tat.device_name("cpu") == "cpu"
 

@@ -9,7 +9,11 @@ variant, long K, ragged N and batch-row GEMVs split over K on its
 streamed variant (two runs bit-equal), its resident variant at every main-path
 (K, N) with a ragged last tile and with more tiles than blocks, channel
 counts that are not a multiple of 4 on K2 (its general variant), its
-strip variant with ragged strips and slabs and extreme zero points, f32
+strip variant with ragged strips and slabs and extreme zero points, its
+stride-2 variants (strip and general) at every stride-2 site of
+MobileNetV2 224x224 and SSD-Lite 300x300 at batch 1, 8 and 128 and both
+models' b128 forwards bit-equal to the same nets with those convs on the
+glue route, f32
 output and both residual requants on K3, both K3 variants at the real
 channel counts of its 7 main-path shape classes on small and ragged
 images, the wrappers' argument checks, the SSD-Lite and DeepLab shapes
@@ -138,7 +142,8 @@ def test_dw3x3_strip_variant_equals_plain(dev, shape, zp_in, out_f32):
     xd = _t(x, dev)
     ck.reset_counts()
     got = ck.dw3x3_int8_requant_packed(xd, op)
-    assert ck.VARIANTS["dw3x3_int8_requant"] == {"strip": 1, "general": 0}
+    assert ck.VARIANTS["dw3x3_int8_requant"] == {"strip": 1, "general": 0, "strip_s2": 0,
+                                                 "general_s2": 0}
     _equal(got, ck.dw3x3_int8_requant_plain(xd, op))
     _equal(got, ck.dw3x3_int8_requant_strip_plain(xd, op))
 
@@ -167,6 +172,103 @@ def test_dw3x3_kernel_equals_plain(dev, shape, out_f32):
                        zp_in=7, s_out=0.0193, zp_out=3, out_f32=out_f32, device=dev)
     xd = _t(x, dev)
     _equal(ck.dw3x3_int8_requant_packed(xd, op), ck.dw3x3_int8_requant_plain(xd, op))
+
+
+def _stride2_dw_sites(build, size):
+    """``(node, H, W, C)`` of every 3x3 depthwise conv of stride 2 and
+    padding 1 of a model's graph at ``size``, H and W its input's."""
+    graph, hw, sites = build(), {}, []
+    for node in graph:
+        if node.op == "input":
+            hw[node.name] = (size, size)
+            continue
+        h, w = hw[node.inputs[0]]
+        a = node.attrs
+        if node.op == "conv":
+            (kh, kw), (sh, sw) = a["kernel"], a["stride"]
+            (ph, pw), (dh, dw) = a["padding"], a["dilation"]
+            hw[node.name] = ((h + 2 * ph - dh * (kh - 1) - 1) // sh + 1,
+                             (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1)
+            if ((kh, kw, sh, sw, ph, pw, dh, dw) == (3, 3, 2, 2, 1, 1, 1, 1)
+                    and a["groups"] == a["in_ch"] == a["out_ch"]):
+                sites.append((node.name, h, w, a["in_ch"]))
+        else:  # the sites lie before any op that changes the map otherwise
+            hw[node.name] = (h, w)
+    return sites
+
+
+_S2_MODELS = {"mobilenet_v2": ("mobilenet_v2", 224, 4),
+              "ssd_lite": ("mobilenet_v2_ssd_lite", 300, 8)}
+
+
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("model", sorted(_S2_MODELS))
+def test_dw3x3_stride2_variants_equal_plain_at_every_site(dev, model, batch):
+    """K2's stride-2 strip variant, and its general variant on an input 4
+    bytes off its 16-byte boundary, bit-equal to the plain version at
+    every stride-2 site of the benchmark models (odd inputs 75, 19, 5, 3;
+    maps narrower than a strip), zero points at both ends of the grid."""
+    import dfq_tpu_torch.models as models
+
+    fn, size, n_sites = _S2_MODELS[model]
+    sites = _stride2_dw_sites(getattr(models, fn), size)
+    assert len(sites) == n_sites
+    for i, (name, H, W, C) in enumerate(sites):
+        rng = np.random.default_rng(i + batch)
+        op = ck.pack_dw3x3(rng.integers(-128, 128, (9, C)).astype(np.int8),
+                           rng.uniform(1e-4, 2e-3, C).astype(np.float32),
+                           rng.normal(0, 1, C).astype(np.float32),
+                           zp_in=(-128, 0, 127)[i % 3], s_out=0.0193, zp_out=-17, stride=2,
+                           device=dev)
+        x = _t(rng.integers(-128, 128, (batch, H, W, C)).astype(np.int8), dev)
+        buf = torch.empty(x.numel() + 16, dtype=torch.int8, device=dev)
+        x_off = buf[4:4 + x.numel()].view(x.shape)
+        x_off.copy_(x)
+        want = ck.dw3x3_int8_requant_plain(x, op)
+        for xv, variant in ((x, "strip_s2"), (x_off, "general_s2")):
+            ck.reset_counts()
+            got = ck.dw3x3_int8_requant_packed(xv, op)
+            assert ck.VARIANTS["dw3x3_int8_requant"][variant] == 1, (name, variant)
+            _equal(got, want)
+
+
+@pytest.mark.parametrize("model", sorted(_S2_MODELS))
+def test_stride2_dw_on_k2_equals_the_glue_route_forward(dev, model, monkeypatch):
+    """The b128 forward with the stride-2 depthwise convs on K2 bit-equal
+    to the same net built with the stride-2 test off (the glue route:
+    ``int8_conv`` and the conv step's epilogue), which launches K2 that
+    many times less."""
+    import dfq_tpu_torch.models as models
+    from dfq_tpu_torch.engine import Int8FusedNet, int8_fused, lower_int8
+    from dfq_tpu_torch.models import init_params
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    fn, size, n_sites = _S2_MODELS[model]
+    g = getattr(models, fn)()
+    flags = dict(delete_single=True, is_detection=True) if model == "ssd_lite" else {}
+    prep = prepare(g, init_params(g, seed=0, bn_stats="random"),
+                   QuantConfig(quantize=True, relu=True, equalize=True, bits_bias=16, **flags))
+    model_i8 = lower_int8(prep)
+    residual = {k: v for k, v in prep.params.items() if k not in model_i8.layers}
+    net = Int8FusedNet(model_i8, device=dev, params_f32=residual)
+    monkeypatch.setattr(int8_fused, "_is_dw2", lambda node: False)
+    glue = Int8FusedNet(model_i8, device=dev, params_f32=residual)
+    monkeypatch.undo()
+    rng = np.random.default_rng(size)
+    x = _t(rng.uniform(-1, 1, (128, size, size, 3)).astype(np.float32), dev)
+    runs = []
+    for n in (net, glue):
+        ck.reset_counts()
+        with torch.no_grad():
+            out = n(x)
+        torch.cuda.synchronize()
+        runs.append((out if isinstance(out, tuple) else (out,), dict(ck.LAUNCHES),
+                     dict(ck.VARIANTS["dw3x3_int8_requant"])))
+    (got, launches, k2), (want, glue_launches, _) = runs
+    assert launches["dw3x3_int8_requant"] == glue_launches["dw3x3_int8_requant"] + n_sites
+    assert k2["strip_s2"] == n_sites
+    for a, b in zip(got, want):
+        _equal(a, b)
 
 
 @pytest.mark.parametrize("out_f32", [False, True])
@@ -690,7 +792,7 @@ def test_fused_block_mma_variant_at_the_mobilenet_v1_c2_1024_block(dev, N):
 @pytest.mark.parametrize("n_shards", [3, 4])
 def test_sharded_fused_forward_on_one_card(dev, n_shards):
     """MobileNetV2 96x96 b12 split over ``n_shards`` shards on the card:
-    logits bit-equal to the single forward, 11 / 1 / 12 launches a shard,
+    logits bit-equal to the single forward, 11 / 5 / 12 launches a shard,
     the counters equal."""
     from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
     from dfq_tpu_torch.models import init_params, mobilenet_v2
@@ -714,7 +816,7 @@ def test_sharded_fused_forward_on_one_card(dev, n_shards):
     out = fwd(x)
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {"matmul_int8_requant": 11 * n_shards,
-                           "dw3x3_int8_requant": n_shards, "fused_block_int8": 12 * n_shards}
+                           "dw3x3_int8_requant": 5 * n_shards, "fused_block_int8": 12 * n_shards}
     assert [s.shape[0] for s in out.shards] == [12 // n_shards] * n_shards
     _equal(out.gather(), single)
     run = make_sharded_eval(None, residual, mesh, int8_model=model, engine="fused")

@@ -34,6 +34,7 @@ from dfq_tpu_torch.interop import int8_model_from_jax, params_from_jax
 from dfq_tpu_torch.models import deeplab_mobilenet_v2, init_params
 from dfq_tpu_torch.ops import cuda_int8 as ck
 from dfq_tpu_torch.pipeline import QuantConfig, prepare
+from test_torch_policies import port_counts, stride2_dw_sites
 
 torch.set_num_threads(1)
 
@@ -117,8 +118,11 @@ def test_fused_engine_matches_jax(engines):
     with torch.no_grad():
         got = net(torch.from_numpy(x))
     _close(got, want)
-    assert ck.PLAIN_CALLS == {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0,
-                              "fused_block_int8": 0}
+    # JAX's pallas_call sites; the depthwise convs are padded explicitly
+    # and run unpadded, so none is a stride-2 K2 site
+    assert stride2_dw_sites(model) == 0
+    assert ck.PLAIN_CALLS == port_counts({"matmul_int8_requant": 38, "dw3x3_int8_requant": 0,
+                                          "fused_block_int8": 0}, model)
     assert not net.blocks
     # the stem, 17 depthwise convs, 3 dilated ASPP convs, 2 decoder convs
     assert len(net.products) == 23

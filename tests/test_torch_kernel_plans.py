@@ -7,6 +7,8 @@ The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 - K2's strip variant computes ``sum x t - zp_in * tapsum`` over a halo
   filled with ``zp_in``; ``dw3x3_int8_requant_strip_plain`` writes that in
   plain PyTorch and must equal ``dw3x3_int8_requant_plain`` bit for bit;
+  at stride 2 its thread walk (rows loaded, transposes, windows) is
+  emulated word by word against the plain product;
 - ``matmul_plan`` / ``dw3x3_plan``: every MobileNetV2 main-path site takes
   the fast variant at batch 8 and 128 inside the shared-memory budget,
   ragged or unaligned shapes take the general one, the shared-memory
@@ -126,6 +128,30 @@ def test_dw3x3_plan_variant_by_shape_and_alignment(shape, aligned, variant):
         assert plan.grid[0] * ck.DW_THREADS >= items
 
 
+# MobileNetV2 224x224's and SSD-Lite 300x300's stride-2 K2 sites (input H = W, C)
+K2_S2_SITES = [(112, 96), (56, 144), (28, 192), (14, 576),
+               (150, 96), (75, 144), (38, 192), (19, 576), (10, 256), (5, 128), (3, 128),
+               (2, 64)]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("site", K2_S2_SITES, ids=lambda s: "x".join(map(str, s)))
+def test_dw3x3_plan_stride2_sites_take_the_strip_variant(site, batch):
+    """Every stride-2 site of the two benchmark models takes the stride-2
+    strip variant, its items counted on the output map (odd inputs 75,
+    19, 5 and 3 round up), grid y walking the images."""
+    H, C = site
+    plan = ck.dw3x3_plan(batch, H, H, C, stride=2)
+    assert plan.variant == "strip_s2" and plan.rows in ck.DW_ROWS and plan.grid[1] == batch
+    OH = -(-H // 2)
+    items = -(-OH // plan.rows) * -(-OH // ck.DW_STRIP) * (C // 4)
+    assert (plan.grid[0] - 1) * ck.DW_THREADS < items <= plan.grid[0] * ck.DW_THREADS
+    assert ck.dw3x3_plan(batch, H, H, C, aligned=False, stride=2).variant == "general_s2"
+    general = ck.dw3x3_plan(batch, H, H, 6, stride=2)
+    assert general.variant == "general_s2"
+    assert general.grid[0] * ck.DW_THREADS >= batch * OH * OH * 6
+
+
 def _byte_perm(x, y, sel):
     """``__byte_perm`` on uint32 arrays: result byte i is byte
     ``(sel >> 4 i) & 7`` of the 8 bytes (x, y)."""
@@ -178,6 +204,85 @@ def test_dw3x3_strip_transpose_and_window_plan(seed):
 
 def _f32(x):
     return np.asarray(x, np.float32)
+
+
+def _dw_s2_strip_walk(x, op, rows):
+    """The int32 accumulators of ``csrc/dw3x3_int8_requant.cu``'s stride-2
+    strip kernel, thread by thread as it computes them: the 9 pixel words
+    of each input row it loads (the zero point where its row flag or
+    column mask says the pixel is outside), two 4x4 byte transposes, the
+    four windows (two of them one byte permute each), one dp4a per window
+    and row, and the walk down a slab that keeps input row 2h + 1 as the
+    next output row's top."""
+    N, H, W, C = x.shape
+    CW, OH, OW = C // 4, -(-H // 2), -(-W // 2)
+    words = x.numpy().view("<u4").astype(np.uint32)  # [N, H, W, CW]
+    tw = op.taps.numpy().view("<u4").astype(np.uint32)  # [9, CW]
+    zp4 = np.uint32((op.zp_in & 0xff) * 0x01010101)
+    zt = op.zp_tapsum.numpy().reshape(CW, 4)
+    out = np.zeros((N, OH, OW, C), np.int64)
+
+    def transpose4(p0, p1, p2, p3):
+        t0, t1 = _byte_perm(p0, p1, 0x5140), _byte_perm(p2, p3, 0x5140)
+        t2, t3 = _byte_perm(p0, p1, 0x7362), _byte_perm(p2, p3, 0x7362)
+        return [_byte_perm(t0, t1, 0x5410), _byte_perm(t0, t1, 0x7632),
+                _byte_perm(t2, t3, 0x5410), _byte_perm(t2, t3, 0x7632)]
+
+    for n in range(N):
+        for h0 in range(0, OH, rows):
+            for w0 in range(0, OW, ck.DW_STRIP):
+                cols = [0 <= 2 * w0 - 1 + i < W for i in range(9)]
+                for cw in range(CW):
+                    def load(r, row_in):
+                        return [words[n, r, 2 * w0 - 1 + i, cw:cw + 1] if row_in and cols[i]
+                                else np.array([zp4]) for i in range(9)]
+
+                    def transpose(p):
+                        return transpose4(*p[:4]), transpose4(*p[4:8]), p[8]
+
+                    taps = []
+                    for c in range(4):
+                        u = [_byte_perm(tw[3 * ky, cw:cw + 1], tw[3 * ky + 1, cw:cw + 1],
+                                        c | ((4 + c) << 4)) for ky in range(3)]
+                        taps.append([_byte_perm(u[ky], tw[3 * ky + 2, cw:cw + 1],
+                                                0x0010 | ((4 + c) << 8)) & np.uint32(0xffffff)
+                                     for ky in range(3)])
+                    top = transpose(load(2 * h0 - 1, h0 > 0))
+                    even, odd = load(2 * h0, True), load(2 * h0 + 1, 2 * h0 + 1 < H)
+                    h_end = min(h0 + rows, OH)
+                    for h in range(h0, h_end):
+                        mid, bot = transpose(even), transpose(odd)
+                        if h + 1 < h_end:
+                            even, odd = load(2 * h + 2, True), load(2 * h + 3, 2 * h + 3 < H)
+                        for c in range(4):
+                            acc = [-int(zt[cw, c])] * 4
+                            for ky, (lo, hi, x8) in enumerate((top, mid, bot)):
+                                win = [lo[c], _byte_perm(lo[c], hi[c], 0x5432), hi[c],
+                                       _byte_perm(hi[c], x8, 0x0032 | ((4 + c) << 8))]
+                                acc = [int(_dp4a(win[j], taps[c][ky], acc[j])[0])
+                                       for j in range(4)]
+                            for j in range(4):
+                                if w0 + j < OW:
+                                    out[n, h, w0 + j, 4 * cw + c] = acc[j]
+                        top = bot
+    return out
+
+
+@pytest.mark.parametrize("rows", [1, 2, 14])
+@pytest.mark.parametrize("shape,zp_in", [((1, 7, 9, 8), -128), ((2, 2, 3, 4), 127),
+                                         ((1, 6, 17, 4), 0), ((1, 3, 1, 8), -9)],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_dw3x3_s2_strip_walk_equals_plain(shape, zp_in, rows):
+    """The stride-2 strip kernel's walk, emulated, gives the plain
+    product's accumulators: odd and even sizes, a map narrower than a
+    strip, slabs of one row, of two and taller than the map."""
+    rng = np.random.default_rng(sum(shape) + rows)
+    x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8))
+    op = ck.pack_dw3x3(rng.integers(-128, 128, (9, shape[-1])).astype(np.int8),
+                       np.ones(shape[-1], np.float32), np.zeros(shape[-1], np.float32),
+                       zp_in=zp_in, s_out=0.02, zp_out=0, stride=2, device="cpu")
+    want = ck._dw3x3_acc(x.to(torch.int32) - zp_in, op.taps, 2).numpy()
+    np.testing.assert_array_equal(_dw_s2_strip_walk(x, op, rows), want)
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "relu6"])
@@ -397,7 +502,8 @@ def test_pack_words_roundtrip(shape):
 def test_variant_counts_reset_with_the_launch_counts():
     ck.reset_counts()
     assert ck.VARIANTS == {"matmul_int8_requant": {"mma": 0, "stream": 0, "dp4a": 0},
-                           "dw3x3_int8_requant": {"strip": 0, "general": 0},
+                           "dw3x3_int8_requant": {"strip": 0, "general": 0, "strip_s2": 0,
+                                                  "general_s2": 0},
                            "fused_block_int8": {"mma": 0, "general": 0}}
     ck._count_launch("matmul_int8_requant", "mma")
     ck._count_launch("fused_block_int8", "general")

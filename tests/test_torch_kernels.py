@@ -229,3 +229,93 @@ def test_fused_block_reciprocal_forms_reach_the_output(stage):
     got = ck.fused_block_int8(torch.from_numpy(x), *(torch.from_numpy(ops[k]) for k in _ARGS),
                               **grids).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+# -- K2 at stride 2 against the engine's glue conv step ------------------------
+
+def _glue_conv_step(x, qw, comb, bias, zp_in, s_out, zp_out):
+    """The fused engine's step for a conv that no kernel takes
+    (``Int8FusedNet._build_layer``'s ``conv`` step; the JAX engine's route
+    for the stride-2 depthwise convs): ``int8_conv``'s exact product,
+    ``acc - zp * wsum`` cast to f32, one FMA with the combined scale and the
+    bias (a multiply without a bias), and ``_emit``'s quantize."""
+    from dfq_tpu_torch.engine.int8 import int8_conv, pack_int8_product
+    from dfq_tpu_torch.engine.int8_fused import _quantize_f32
+    from dfq_tpu_torch.graph.ir import Node
+    from dfq_tpu_torch.ops.rounding import fma_f32
+
+    C = qw.shape[0]
+    node = Node("dw", "conv", ("x",), {
+        "in_ch": C, "out_ch": C, "kernel": (3, 3), "stride": (2, 2), "padding": (1, 1),
+        "dilation": (1, 1), "groups": C})
+    acc = int8_conv(x, node, pack_int8_product(qw, node, x.device), zp_in)
+    wsum = torch.from_numpy(qw.astype(np.int32).reshape(C, 9).sum(1))
+    a = (acc - zp_in * wsum).to(torch.float32)
+    comb_t = torch.from_numpy(comb)
+    out = a * comb_t if bias is None else fma_f32(a, comb_t, torch.from_numpy(bias))
+    return _quantize_f32(out, s_out, zp_out)
+
+
+def _dw_s2_op(qw, comb, bias, zp_in, s_out, zp_out):
+    C = qw.shape[0]
+    return ck.pack_dw3x3(qw.reshape(C, 9).T, comb,
+                         np.zeros(C, np.float32) if bias is None else bias,
+                         zp_in=zp_in, s_out=s_out, zp_out=zp_out, stride=2, device="cpu")
+
+
+@pytest.mark.parametrize("zp_in", [-128, 0, 127])
+@pytest.mark.parametrize("C", [96, 64, 6])
+@pytest.mark.parametrize("hw", [(112, 112), (75, 75), (19, 19), (3, 3), (2, 2), (3, 75)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_dw3x3_s2_plain_equals_the_glue_conv_step(hw, C, zp_in):
+    """K2's stride-2 plain version equals, bit for bit, the glue's conv
+    step at a stride-2 depthwise conv (odd sizes 75 -> 38, 19 -> 10, 3 -> 2, a map
+    narrower than a strip, channels that are not whole words, the zero
+    point at both ends of the grid; without a bias at zp_in 0)."""
+    H, W = hw
+    rng = np.random.default_rng(H * W + C + zp_in + 128)
+    N = 1 if H * W > 5000 else 2
+    x = torch.from_numpy(rng.integers(-128, 128, (N, H, W, C)).astype(np.int8))
+    qw = rng.integers(-128, 128, (C, 1, 3, 3)).astype(np.int8)
+    comb = rng.uniform(1e-4, 2e-3, C).astype(np.float32)
+    bias = None if zp_in == 0 else rng.normal(0, 1, C).astype(np.float32)
+    s_out, zp_out = 0.0193, -17
+    want = _glue_conv_step(x, qw, comb, bias, zp_in, s_out, zp_out)
+    op = _dw_s2_op(qw, comb, bias, zp_in, s_out, zp_out)
+    ck.reset_counts()
+    got = ck.dw3x3_int8_requant_packed(x, op)
+    assert ck.PLAIN_CALLS["dw3x3_int8_requant"] == 1
+    assert got.dtype == want.dtype == torch.int8 and got.shape == (N, -(-H // 2), -(-W // 2), C)
+    assert torch.equal(got, want)
+    assert torch.equal(ck.dw3x3_int8_requant_strip_plain(x, op), want)
+
+
+def test_dw3x3_s2_reciprocal_form_reaches_the_output():
+    """K2 at stride 2 quantizes with the glue's f32(1/f32(s)), not with
+    stride 1's f32(1.0 / s): with x on its zero point the output is
+    quant(bias), and the biases sit where the two reciprocals round
+    apart."""
+    from dfq_tpu_torch.ops.rounding import recip_host, recip_xla
+
+    s_out, C, zp_in = 0.0371, 64, 9
+    bias = _rounding_boundaries(s_out, recip_xla(s_out), recip_host(s_out), C)
+    qw = np.random.default_rng(0).integers(-128, 128, (C, 1, 3, 3)).astype(np.int8)
+    comb = np.ones(C, np.float32)
+    x = torch.full((1, 7, 7, C), zp_in, dtype=torch.int8)
+    want = _glue_conv_step(x, qw, comb, bias, zp_in, s_out, -128)
+    got = ck.dw3x3_int8_requant_packed(x, _dw_s2_op(qw, comb, bias, zp_in, s_out, -128))
+    assert torch.equal(got, want)
+    host = torch.from_numpy(np.rint(bias * np.float32(recip_host(s_out)))) - 128
+    assert not torch.equal(got[0, 0, 0].to(torch.float32), host.clamp(-128, 127))
+
+
+def test_pack_dw3x3_refuses_what_stride_2_does_not_take():
+    rng = np.random.default_rng(0)
+    args = (rng.integers(-128, 128, (9, 8)).astype(np.int8), np.ones(8, np.float32),
+            np.zeros(8, np.float32))
+    kw = dict(zp_in=0, s_out=0.1, zp_out=0, device="cpu")
+    with pytest.raises(ValueError, match="stride 3"):
+        ck.pack_dw3x3(*args, stride=3, **kw)
+    for extra in (dict(act="relu"), dict(out_f32=True)):
+        with pytest.raises(ValueError, match="stride 2"):
+            ck.pack_dw3x3(*args, stride=2, **extra, **kw)

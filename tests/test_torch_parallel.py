@@ -470,6 +470,8 @@ def test_kernel_launch_asks_for_the_inputs_device(monkeypatch):
                         np.zeros(C2, np.int32), zp_in=0, s_out=1.0, zp_out=0, device="cpu")
     dw = ck.pack_dw3x3(rng.integers(-127, 128, (9, C)), np.ones(C), np.zeros(C), zp_in=0,
                        s_out=1.0, zp_out=0, device="cpu")
+    dw2 = ck.pack_dw3x3(rng.integers(-127, 128, (9, C)), np.ones(C), np.zeros(C), zp_in=0,
+                        s_out=1.0, zp_out=0, stride=2, device="cpu")
     g = (0.1, -128)
     fb = ck.pack_fused_block(
         rng.integers(-127, 128, (C, E)), np.ones(E), np.zeros(E), np.zeros(E, np.int32),
@@ -480,5 +482,6 @@ def test_kernel_launch_asks_for_the_inputs_device(monkeypatch):
     x = torch.zeros((2, 4, 4, C), dtype=torch.int8)
     ck.matmul_int8_requant_packed(x.reshape(-1, C), mm)
     ck.dw3x3_int8_requant_packed(x, dw)
+    ck.dw3x3_int8_requant_packed(x, dw2)
     ck.fused_block_int8_packed(x, fb)
-    assert asked == [("current", x.device), ("stream", x.device)] * 3
+    assert asked == [("current", x.device), ("stream", x.device)] * 4

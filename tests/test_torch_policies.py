@@ -11,14 +11,17 @@
   ``jax.jit(execute_int8_fused(**same))`` on MobileNetV2 at 32x32 b2: the
   logits 0.0 apart from JAX's and from the port's net without the policy
   (each is an exact rewrite), and the kernels' plain-version calls equal,
-  per kernel, to the ``pallas_call`` equations of JAX's trace. Each conv
+  per kernel, to the ``pallas_call`` equations of JAX's trace, K2's with
+  the graph's stride-2 depthwise convs added where the kernels run (JAX
+  runs them as XLA convs, the port on K2, bit for bit). Each conv
   policy here (``stem_s2d``,
   dense-diagonal depthwise at JAX's 32 channels and 160 rows,
   ``chpad_k3``) runs with neither kernels nor blocks on both sides (the
   JAX CLIs' default path, where it also reaches the pointwise and
   stride-1 depthwise convs; XLA compiles it in a third of the time Pallas
   in interpret mode takes), and again with the port's kernels, equal to
-  its default net with its 11 / 1 / 12 launches;
+  its default net with its 11 / 5 / 12 launches (JAX's 11 / 1 / 12 and
+  the 4 stride-2 depthwise convs);
   ``tests/test_torch_policies_configs.py`` holds ``k3_matmul`` and
   ``b2s_min_h`` the same way, and ``tests/test_torch_policies_kernels.py``
   the kernel configurations (``use_kernels``, ``fuse_blocks``) against
@@ -97,6 +100,26 @@ def pallas_counts(jaxpr):
     return counts
 
 
+def stride2_dw_sites(model) -> int:
+    """The lowered 3x3 depthwise convs of stride 2 and padding 1 in the
+    model's graph, read from the nodes' attributes: the port's K2 takes
+    them beside the ``pallas_call`` sites of JAX's routing."""
+    return sum(1 for n in model.graph if n.op == "conv" and n.name in model.layers
+               and n.attrs["kernel"] == (3, 3)
+               and n.attrs["groups"] == n.attrs["in_ch"] == n.attrs["out_ch"]
+               and n.attrs["stride"] == (2, 2) and n.attrs["padding"] == (1, 1)
+               and n.attrs["dilation"] == (1, 1))
+
+
+def port_counts(counts, model, use_pallas: bool = True):
+    """The port's calls per kernel for JAX's ``pallas_call`` ``counts``:
+    K2's plus the stride-2 depthwise convs where the kernels run."""
+    out = dict(counts)
+    if use_pallas:
+        out["dw3x3_int8_requant"] += stride2_dw_sites(model)
+    return out
+
+
 def jax_forward(model, params, x, **opts):
     """JAX's logits (one trace, compiled) and its pallas_call counts."""
     traced = jax.jit(lambda v: jf.execute_int8_fused(model, params, v, **opts)).trace(
@@ -119,8 +142,10 @@ def port_forward(tmodel, x, residual=None, **opts):
 
 def hold_policy(jmodel, jparams, tmodel, x, jax_opts, residual=None, default=None):
     """The port under ``jax_opts`` (JAX's names) against JAX: outputs 0.0
-    apart, launches equal; and 0.0 from the port's ``default`` outputs."""
-    want, counts = jax_forward(jmodel, jparams, x, **jax_opts)
+    apart, launches JAX's and the stride-2 depthwise convs; and 0.0 from
+    the port's ``default`` outputs."""
+    want, jax_counts = jax_forward(jmodel, jparams, x, **jax_opts)
+    counts = port_counts(jax_counts, tmodel, jax_opts["use_pallas"])
     opts = {PORT_NAMES.get(k, k): v for k, v in jax_opts.items()}
     got, calls, net = port_forward(tmodel, x, residual, **opts)
     assert len(got) == len(want)
@@ -152,6 +177,7 @@ POLICIES = {
     "shift9": dict(k3_matmul="shift9", k3_matmul_min_ch=0),
     "b2s": dict(b2s_min_h=4),
 }
+# JAX's pallas_call counts of the default configuration
 DEFAULT_CALLS = {"matmul_int8_requant": 11, "dw3x3_int8_requant": 1, "fused_block_int8": 12}
 
 
@@ -160,7 +186,8 @@ def mnv2():
     prep, model, x = flagship_mnv2()
     tmodel = int8_model_from_jax(model)
     default, calls, _ = port_forward(tmodel, x)
-    assert calls == DEFAULT_CALLS
+    assert stride2_dw_sites(tmodel) == 4
+    assert calls == port_counts(DEFAULT_CALLS, tmodel)
     return prep, model, tmodel, x, default
 
 
@@ -173,7 +200,7 @@ def hold_conv_policy(mnv2, policy):
     hold_policy(model, prep.params, tmodel, x, {**XLA, **POLICIES[policy]}, default=plain)
     got, calls, _ = port_forward(tmodel, x, **POLICIES[policy])
     np.testing.assert_array_equal(got[0], default[0])
-    assert calls == DEFAULT_CALLS
+    assert calls == port_counts(DEFAULT_CALLS, tmodel)
 
 
 @pytest.mark.parametrize("policy", ["stem_s2d", "dense_dw", "chpad_k3"])

@@ -2,14 +2,15 @@
 against the JAX package, on MobileNetV2 at 32x32 b2 (the method and
 helpers of ``tests/test_torch_policies.py``): without kernels, the logits
 0.0 apart from ``jax.jit(execute_int8_fused(**same))``'s; with the port's
-kernels, 0.0 from its default net with its 11 / 1 / 12 launches. At
+kernels, 0.0 from its default net with its 11 / 5 / 12 launches. At
 32x32, ``b2s_min_h=4`` folds the stem (32 rows) and every depthwise conv
 on a map of 4 rows or more.
 
 And the launches ``chip_smoke.py``'s phase 19 pins for its four paths at
 full size under each kernel configuration, against the ``pallas_call``
 equations of the JAX fused engine's trace (``jax.make_jaxpr``, which only
-traces) and the port's ``kernel_sites``."""
+traces) with the graph's stride-2 depthwise convs added to K2's where the
+kernels run, and the port's ``kernel_sites``."""
 
 import pytest
 import torch
@@ -52,7 +53,8 @@ CONFIGS = {"default": {}, "unfused": {"fuse_blocks": False},
 def test_phase19_launches_equal_jax_routing(name):
     """``POLICY_LAUNCHES`` equals, per path and kernel configuration, the
     ``pallas_call`` equations of the JAX fused engine's trace at the
-    path's full size, and the port's ``kernel_sites`` under the same
+    path's full size with the graph's stride-2 depthwise convs added to
+    K2's where the kernels run, and the port's ``kernel_sites`` under the same
     options; the conv policies of ``POLICIES`` leave the sites as the
     default's. Routing depends on the graph and on which site grids line
     up, so the models are lowered from a quick config."""
@@ -66,7 +68,7 @@ def test_phase19_launches_equal_jax_routing(name):
     from dfq_tpu.pipeline import QuantConfig, prepare
     from dfq_tpu_torch.engine import Int8FusedNet
     from dfq_tpu_torch.interop import int8_model_from_jax
-    from test_torch_policies import KERNELS, PORT_NAMES, pallas_counts
+    from test_torch_policies import KERNELS, PORT_NAMES, pallas_counts, port_counts
 
     chip = _chip_smoke()
     build, size, det = ROUTING_MODELS[name]
@@ -80,7 +82,8 @@ def test_phase19_launches_equal_jax_routing(name):
         jaxpr = jax.make_jaxpr(lambda v: execute_int8_fused(
             model, prep.params, v, stem_s2d=False, dw_dense_max_ch=0,
             **{"use_pallas": True, "fuse_blocks": True, **opts}))(jnp.zeros((1, size, size, 3)))
-        want = tuple(pallas_counts(jaxpr)[k] for k in KERNELS)
+        counts = port_counts(pallas_counts(jaxpr), tmodel, opts.get("use_pallas", True))
+        want = tuple(counts[k] for k in KERNELS)
         assert chip.POLICY_LAUNCHES[name][config] == want, config
         net = Int8FusedNet(tmodel, device="cpu", **{PORT_NAMES.get(k, k): v
                                                      for k, v in opts.items()})

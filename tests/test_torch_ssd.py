@@ -39,6 +39,7 @@ from dfq_tpu_torch.models import init_params, mobilenet_v2_ssd_lite
 from dfq_tpu_torch.models.ssd import MB2_SSD_SPECS, SSDConfig, quantized_priors
 from dfq_tpu_torch.ops import cuda_int8 as ck
 from dfq_tpu_torch.pipeline import QuantConfig, prepare
+from test_torch_policies import port_counts, stride2_dw_sites
 
 torch.set_num_threads(1)
 
@@ -155,14 +156,16 @@ def test_fused_engine_matches_jax(engines):
     _close(got, want)
     np.testing.assert_allclose(got[0].numpy().sum(-1), 1.0, atol=1e-4)
     # K1 at the 24 pointwise convs and the 6 class heads (N = 126); K2 at
-    # base_net.1 and the 10 separable heads; K3 at 12 blocks; all of them
+    # base_net.1 and the 10 separable heads; K3 at 12 blocks (JAX's
+    # pallas_call sites); K2 at the 8 stride-2 depthwise convs; all of them
     # the plain versions on the CPU
-    assert ck.PLAIN_CALLS == {"matmul_int8_requant": 30, "dw3x3_int8_requant": 11,
-                              "fused_block_int8": 12}
+    assert stride2_dw_sites(model) == 8
+    assert ck.PLAIN_CALLS == port_counts({"matmul_int8_requant": 30, "dw3x3_int8_requant": 11,
+                                          "fused_block_int8": 12}, model)
     assert ck.LAUNCHES == dict.fromkeys(ck.LAUNCHES, 0)
-    # the 9 other lowered convs (the stem, 8 stride-2 depthwise convs) run
-    # as exact int8 products
-    assert len(net.products) == 9
+    # of the 9 lowered convs that JAX leaves to XLA (the stem, the 8
+    # stride-2 depthwise convs), the stem is the one exact int8 product
+    assert len(net.products) == 9 - stride2_dw_sites(model)
 
 
 def test_baseline_engine_matches_jax(engines):

@@ -130,6 +130,8 @@ def test_each_step_that_ran_has_one_step_range(mnv2, mode):
         sites = sorted(n for n, k, _ in net.kernel_sites if k == kernel)
         assert sites and sorted(n for n in ran if kinds[n] == kind) == sites, kind
     assert {kinds[n] for n in ran} >= {"k1", "k2", "k3", "conv", "mean", "passthrough"}
+    # K2 takes the stride-2 depthwise convs: the stem is the one conv step
+    assert [n for n in ran if kinds[n] == "conv"] == ["features.0.0"]
     # the phases, each inside the step that opened it
     phases = {}
     for e in events:
