@@ -4,9 +4,12 @@ alone, and the published peaks they are held against.
 Counts, frozen with the benchmark (the arithmetic of
 ``dfq_tpu_torch/utils/profiling.py:layer_costs``, without its TPU tiling
 model): 2 operations per multiply-accumulate of every conv and linear
-layer; bytes count each tensor a call needs once, at the width the
-int8 engine stores it in (activations and weights 1 byte, per-channel
-scale and bias 4 bytes each, a float32 output 4 bytes).
+layer. One departure: a global pool's output is 1x1 here, where
+``layer_costs`` keeps its input's side and so counts the conv after it
+(DeepLab's ``aspp.global_avg_pool.1``) at the full map. Bytes count each
+tensor a call needs once, at the width the int8 engine stores it in
+(activations and weights 1 byte, per-channel scale and bias 4 bytes
+each, a float32 output 4 bytes).
 """
 
 from __future__ import annotations
@@ -22,8 +25,8 @@ PEAKS: List[Tuple[str, Dict[str, float]]] = [
     ("H100", {"int8_ops": 1979e12, "hbm_bytes": 3.35e12}),
 ]
 
-# ops that pass a tensor through unchanged in the int8 engine
-_PASS = {"relu", "relu6", "bn", "identity", "dropout"}
+# ops through which the int8 engine carries an int8 tensor on its grid
+_PASS = {"relu", "relu6", "bn", "identity", "dropout", "maxpool", "pad"}
 
 
 def peaks(device_name: str) -> Optional[Dict[str, float]]:
@@ -41,15 +44,26 @@ def _out_hw(h: int, node) -> int:
 
 
 def shapes(graph: Graph, size: int) -> Dict[str, int]:
-    """The spatial side of every node's output map, for a square input."""
+    """The spatial side of every node's output map, for a square input:
+    convs and max pools (floor mode) by their window, stride and padding,
+    pads by their top and bottom, resizes to their ``size`` (or the side
+    times ``scale``), global pools and means to 1; other ops keep their
+    input's side."""
     hw: Dict[str, int] = {}
     for node in graph:
-        if node.op == "input":
-            hw[node.name] = size
-        elif node.op == "conv":
-            hw[node.name] = _out_hw(hw[node.inputs[0]], node)
-        elif node.inputs:
-            hw[node.name] = hw.get(node.inputs[0], 1)
+        a = node.attrs
+        h = hw.get(node.inputs[0], 1) if node.inputs else size
+        if node.op == "conv":
+            h = _out_hw(h, node)
+        elif node.op == "maxpool":
+            h = (h + 2 * a["padding"][0] - a["window"][0]) // a["stride"][0] + 1
+        elif node.op == "pad":
+            h += a["pads"][0] + a["pads"][1]
+        elif node.op == "interpolate":
+            h = a["size"][0] if a.get("size") else int(h * a["scale"])
+        elif node.op in ("global_pool", "global_mean"):
+            h = 1
+        hw[node.name] = h
     return hw
 
 

@@ -2,7 +2,8 @@
 
 Copied from ``dfq_tpu_torch`` (``graph/ir.py``, ``passes/``,
 ``quant/moments.py``, ``models/mobilenet_v2.py``, ``models/ssd.py``, the
-numpy half of ``quant/core.py``) when the benchmark was defined, with the
+numpy half of ``quant/core.py``) when the benchmark was defined, and
+``models/resnet.py`` when its configuration was added, with the
 imports made relative: the reference works the quantized model out
 again with the passes as they stood then, and imports nothing of the
 program. A later change to the program's passes does not reach it.

@@ -12,6 +12,22 @@ grid. That is the program's documented semantics
 real numbers: ``Q(v, grid)`` rounds ``v`` onto the grid and returns the
 real value it stands for.
 
+The parameter-free spatial ops follow the program's documented
+semantics (``graph/executor.py``'s maths, ``Int8FusedNet``'s grids):
+
+- ``maxpool`` pools the carried real values with -inf padding and keeps
+  their grid (the engine pools the int8 codes, which keeps the order);
+  each consumer rounds onto its own grid, as the engine's requantizes. A
+  real input is pooled and emitted.
+- ``pad`` pads with real 0, the zero point of any grid, and keeps the grid.
+- ``interpolate`` rounds its input at its site, resizes (bilinear only,
+  with the node's ``align_corners``) and emits. The program sums the two
+  taps of each axis in float32 in XLA:CPU's order; here they are summed
+  in float64, so it departs from the program by float32 round-off.
+- ``global_pool`` takes the mean over H and W keeping a 1x1 map, with its
+  input rounded at its site if it has one (the program's graphs give it
+  none), and emits.
+
 The reference computes in float64 with plain ``torch`` operations (no
 TF32, no kernels, no batching beyond blocks of rows), so it differs from
 the program only where a value lies within float32 round-off of a
@@ -170,10 +186,30 @@ class Reference:
                     sg = m.sites.get(f"{name}:in{i}")
                     ins.append(Q(v, sg) if g is not None and sg is not None else v)
                 env[name] = emit(ins[0] + ins[1], name)
-            elif op == "global_mean":
+            elif op in ("global_mean", "global_pool"):
                 sg = m.sites.get(f"{name}:in0")
                 v = srcs[0][0] if sg is None else Q(srcs[0][0], sg)
-                env[name] = emit(v.mean(dim=(1, 2)), name)
+                env[name] = emit(v.mean(dim=(1, 2), keepdim=op == "global_pool"), name)
+            elif op in ("maxpool", "pad"):
+                v, g = srcs[0]
+                a = node.attrs
+                if op == "maxpool":
+                    v = F.max_pool2d(v.permute(0, 3, 1, 2), a["window"], a["stride"],
+                                     a["padding"]).permute(0, 2, 3, 1)
+                else:
+                    t, b, l, r = a["pads"]
+                    v = F.pad(v, (0, 0, l, r, t, b))
+                env[name] = (v, g) if g is not None else emit(v, name)
+            elif op == "interpolate":
+                a = node.attrs
+                if a.get("mode", "bilinear") != "bilinear":
+                    raise NotImplementedError(f"reference: {a['mode']} resize ({name})")
+                sg = m.sites.get(f"{name}:in0")
+                v = srcs[0][0] if sg is None else Q(srcs[0][0], sg)
+                size = a["size"] or (int(v.shape[1] * a["scale"]), int(v.shape[2] * a["scale"]))
+                v = F.interpolate(v.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                                  align_corners=a.get("align_corners", True))
+                env[name] = emit(v.permute(0, 2, 3, 1), name)
             elif op == "concat":
                 sgs = [m.sites.get(f"{name}:in{i}") for i in range(len(srcs))]
                 ins = [v if sg is None else Q(v, sg) for (v, _), sg in zip(srcs, sgs)]

@@ -47,7 +47,8 @@ def param_specs(graph) -> List[Tuple[str, str, tuple, str]]:
             specs += [(node.name, "gamma", c, "lognormal:0.5"), (node.name, "beta", c, "normal:0.5"),
                       (node.name, "mean", c, "normal:0.2"), (node.name, "var", c, "lognormal:0.5")]
         elif node.op not in ("input", "relu", "relu6", "add", "global_mean", "reshape",
-                             "concat", "softmax", "identity", "dropout"):
+                             "concat", "softmax", "identity", "dropout", "maxpool", "pad",
+                             "interpolate", "global_pool"):
             raise NotImplementedError(f"no seeded parameters for op {node.op!r} ({node.name})")
     return specs
 

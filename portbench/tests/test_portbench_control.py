@@ -14,7 +14,8 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("name,size,rows", [("mobilenet_v2_224", 64, 4),
-                                            ("ssdlite_mobilenet_v2_300", 300, 1)])
+                                            ("ssdlite_mobilenet_v2_300", 300, 1),
+                                            ("resnet18_224", 64, 4)])
 def test_int4_control_fails_a_limit(name, size, rows):
     cfg = json.loads((PB / "configs" / f"{name}.json").read_text())
     cfg["image_size"] = size

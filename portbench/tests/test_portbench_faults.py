@@ -25,6 +25,8 @@ SMALL = {
         "check_dispatches": 3}},
     "ssdlite_300.offline_b128": {"mix": {"batch": 1, "ring": 2, "check_rows": 1,
                                          "check_steps": 1, "warmup_steps": 1}},
+    "resnet18_224.offline_b128": {"image_size": 48, "mix": {
+        "batch": 2, "ring": 2, "check_rows": 2, "check_steps": 2, "warmup_steps": 1}},
 }
 torch.set_num_threads(2)
 
@@ -50,12 +52,14 @@ def _alter_forward(monkeypatch):
     monkeypatch.setattr(int8_fused.Int8FusedNet, "forward", altered)
 
 
-@pytest.mark.parametrize("cell", ["mnv2_224.offline_b128", "mnv2_224.served_poisson"])
+@pytest.mark.parametrize("cell", ["mnv2_224.offline_b128", "mnv2_224.served_poisson",
+                                  "resnet18_224.offline_b128"])
 def test_sound_run_is_correct(cell):
     assert _run(cell)["correct"]
 
 
-@pytest.mark.parametrize("cell", ["mnv2_224.offline_b128", "ssdlite_300.offline_b128"])
+@pytest.mark.parametrize("cell", ["mnv2_224.offline_b128", "ssdlite_300.offline_b128",
+                                  "resnet18_224.offline_b128"])
 def test_altered_forward_output_fails(cell, monkeypatch):
     _alter_forward(monkeypatch)
     out = _run(cell)
