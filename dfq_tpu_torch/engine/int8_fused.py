@@ -60,7 +60,8 @@ conversion of the glue); ``python3 -m portbench.spans`` sums device time
 and idle by them. The ranges are FUNCTION-scope profiler ranges, so each
 device op is tied to them through its launch's correlation and none takes
 a device annotation from a caller's ``record_function``. Always on:
-:attr:`Int8FusedNet.host`, the forward's calls and host seconds.
+:attr:`Int8FusedNet.host`, the forward's calls and host seconds, and
+:data:`FALLBACK_BYTES`, the bytes an image of each f32 fallback step.
 
 The int8 tensor carried on an edge uses the CONSUMER's site quantization
 params (:func:`_consumer_plan`). The f32 glue mirrors the forms XLA
@@ -74,7 +75,7 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +116,11 @@ STEP_KINDS = ("k1", "k2", "k3", "conv", "act", "add", "mean", "spatial", "concat
               "fallback", "passthrough")
 PRODUCT, REQUANT, EPILOGUE = "int8_fused/product", "int8_fused/requant", "int8_fused/epilogue"
 _NO_RANGE = contextlib.nullcontext()
+
+# node -> (op, bytes an image of its f32 output) of every f32 fallback
+# step, as the last forward that ran it wrote them: read from shapes on
+# the host, with no sync; one plain dict store a step
+FALLBACK_BYTES: Dict[str, Tuple[str, int]] = {}
 
 
 def _phase(spans: bool, name: str):
@@ -167,6 +173,54 @@ def _requant_i8(t: QTensor, scale: float, zp: int) -> torch.Tensor:
         return t.q
     # (q - zp) * (s / s') + (zp' + 128) as one FMA; the ratio is Python's
     return requant_i8(t.q, t.zp, f32(t.scale / scale), zp)
+
+
+class ConcatTable:
+    """An int8 concat whose branches map their codes, in one gather.
+
+    ``fns[i]`` maps branch ``i``'s int8 codes (None keeps them). The maps
+    are tabled on ``device`` once, for every pair of codes and for every
+    code, so a table entry is the map's own output there, bit for bit. A
+    call reads each branch as rows of its codes from ``axis`` on, builds
+    the output's table indices branch by branch (pairs of codes where
+    every branch's rows hold an even count at an even offset, else single
+    codes) and gathers the output in one pass, whichever branches map
+    their codes."""
+
+    def __init__(self, fns: Sequence[Optional[Callable[[torch.Tensor], torch.Tensor]]], device):
+        self.device = device
+        pairs = torch.arange(2**16, dtype=torch.int32, device=device).to(torch.int16).view(torch.int8)
+        codes = torch.arange(-128, 128, dtype=torch.int32, device=device).to(torch.int8)
+        # branch i's entry for the int16 word w at 2**16 * i + 2**15 + w, and
+        # for the code c at 256 * i + 128 + c
+        self.pairs = torch.cat([torch.roll((pairs if f is None else f(pairs)).view(torch.int16), 2**15)
+                                for f in fns])
+        self.singles = torch.cat([codes if f is None else f(codes) for f in fns])
+        self._bases: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+    def _base(self, i: int, width: int, n: int) -> torch.Tensor:
+        key = (i, width, n)
+        if key not in self._bases:
+            base = 2**16 * i + 2**15 if width == 2 else 256 * i + 128
+            self._bases[key] = torch.full((n,), base, dtype=torch.int32, device=self.device)
+        return self._bases[key]
+
+    def __call__(self, qs: Sequence[torch.Tensor], axis: int) -> torch.Tensor:
+        axis %= qs[0].dim()
+        outer = int(np.prod(qs[0].shape[:axis]))
+        rows = [q.reshape(outer, -1).contiguous() for q in qs]
+        width = 2 if all(r.shape[1] % 2 == 0 and r.storage_offset() % 2 == 0 for r in rows) else 1
+        table, dtype = (self.pairs, torch.int16) if width == 2 else (self.singles, torch.int8)
+        idx = torch.empty(outer, sum(r.shape[1] for r in rows) // width, dtype=torch.int32,
+                          device=self.device)
+        col = 0
+        for i, r in enumerate(rows):
+            n = r.shape[1] // width
+            torch.add(r.view(dtype), self._base(i, width, n), out=idx[:, col:col + n])
+            col += n
+        shape = list(qs[0].shape)
+        shape[axis] = sum(q.shape[axis] for q in qs)
+        return table.index_select(0, idx.view(-1)).view(torch.int8).view(shape)
 
 
 def _s2d_weights(qw: np.ndarray) -> np.ndarray:
@@ -999,19 +1053,33 @@ class Int8FusedNet(nn.Module):
 
     def _build_concat(self, node) -> Step:
         """int8 concat: each branch requantized onto its site grid, then
-        onto the consumer's (the two roundings of the f32 path)."""
+        onto the consumer's (the two roundings of the f32 path). Where
+        any branch's grids are not both its own, the concat is one
+        :class:`ConcatTable` gather, made here from the static grids: the
+        ranges decide which branches need requantizing (DeepLab's decoder
+        concat requantizes its 256 resized channels or its 48 low-level
+        ones), and the step costs the same either way."""
         name = node.name
         sp = self.plan[name]
         self._grids[name] = sp
         sps = [_site_params(self.model, f"{name}:in{i}") for i in range(len(node.inputs))]
         axis = node.attrs.get("axis", -1)
 
+        def both(grid, spi):
+            def fn(q):
+                q_site = QTensor(_requant_i8(QTensor(q, *grid), *spi), *spi)
+                return _requant_i8(q_site, *sp)
+            return fn
+
+        fns = [None if self._grids[inp] == spi == sp else both(self._grids[inp], spi)
+               for inp, spi in zip(node.inputs, sps)]
+        table = (None if all(f is None for f in fns) else
+                 self._pack((name, "concat"), lambda: ConcatTable(fns, self.device)))
+
         def concat_i8(env, done, spans):
-            parts = []
-            for inp, spi in zip(node.inputs, sps):
-                q_site = QTensor(_requant_i8(env[inp], spi[0], spi[1]), spi[0], spi[1])
-                parts.append(_requant_i8(q_site, sp[0], sp[1]))
-            env[name] = QTensor(torch.cat(parts, dim=axis), sp[0], sp[1])
+            qs = [env[inp].q for inp in node.inputs]
+            q = torch.cat(qs, dim=axis) if table is None else table(qs, axis)
+            env[name] = QTensor(q, sp[0], sp[1])
 
         return concat_i8
 
@@ -1039,6 +1107,7 @@ class Int8FusedNet(nn.Module):
                     v = (_quantize_f32(v, s, zp).to(torch.float32) - zp) * f32(s)
                 ins.append(v)
             out = apply_op(node, ins, p)
+            FALLBACK_BYTES[name] = (node.op, out.numel() // out.shape[0] * out.element_size())
             with _phase(spans, EPILOGUE):
                 self._emit(env, name, out)
 
