@@ -103,7 +103,21 @@ Phases, in order; any failure exits non-zero:
    card; the baseline engine on the card against the CPU as in 12, the
    two engines' argmax agreeing as the JAX suite holds it; ``run_seg
    --engine fused`` and ``--engine int8 --save-artifact`` in-process, the
-   reloaded artifact bit-equal.
+   reloaded artifact bit-equal;
+13a. the glue convs' epilogue kernel (``csrc/conv_epilogue_int8.cu``, glue
+   and no K-site: its own counter ``EPILOGUE_LAUNCHES``, apart from
+   ``LAUNCHES``) at every glue conv site of the four paths, on the
+   accumulator the site's own product leaves from a random int8 input:
+   bit-equal to its plain version at the path's batch, at 3 and at its
+   benchmark cell's batch (MobileNetV2, ResNet-18, SSD-Lite 128, DeepLab
+   32), where each site is timed (host calls, CUDA-graph replays, the
+   plain version) beside its byte bound; the wrapper's host cost a call
+   against a bare launch. Around every fused forward of every phase the
+   epilogue launches once a glue ``conv`` step of the net's lowering and
+   never under ``plain_kernels`` or ``use_kernels=False``, with no plain
+   run through its wrapper; the main paths pin that at 1 / 20 / 1 / 23
+   (MobileNetV2, also calibrated, AOT and a shard; ResNet-18; SSD-Lite;
+   DeepLab, also a shard) (``EPILOGUE_PINS``).
 
 14. calibration (``--distill_range``), MobileNetV2 224x224 with the
    flagship config: ``distill_batch_fn`` at run_cls's batch (64) capped at
@@ -210,10 +224,10 @@ Phases, in order; any failure exits non-zero:
    raced again); ``roofline_report`` of MobileNetV2 b128 with the card's
    peaks beside the measured default forward.
 
-Phases 12 and 13 run after 10 and before 11, and 14 to 19 after 11. It
+Phases 12, 13 and 13a run after 10 and before 11, and 14 to 19 after 11. It
 prints the ``kernels`` JSON line (with each kernel's launches on each
 model's path: the calibrated, the AOT, the zoo's and the sharded
-included), then the card line, then as the last line ``{"ok": true,
+included; the epilogue's row last), then the card line, then as the last line ``{"ok": true,
 "device": {...}}``.
 Per-site details go to ``chiprun_out/chip_smoke.json``. Without CUDA it
 exits 2 and prints no result.
@@ -251,6 +265,14 @@ SSD_SIZE = 300
 SEG_SIZE = 513
 SEG_BATCH = 4  # the segmentation path's batch (the CLI's --batch-size)
 DET = {"delete_single": True, "is_detection": True}  # run_ssd's QuantConfig flags
+# the glue conv steps of each path's fused forward, one launch each of the
+# glue convs' epilogue kernel (ops/conv_epilogue.py), and the benchmark
+# cell's batch at which phase 13a times each such site
+EPILOGUE_PINS = {"mobilenet_v2": 1, "resnet18": 20, "ssd_lite": 1, "deeplab_mnv2": 23}
+EPILOGUE_CELL_BATCH = {"mobilenet_v2": 128, "resnet18": 128, "ssd_lite": 128,
+                       "deeplab_mnv2": 32}
+# the epilogue's launches read around each path's forward, by path
+EPILOGUE_SEEN: dict = {}
 # phase 14: run_cls's distillation batch, the capped step counts it is timed
 # over, the detection and segmentation CLIs' batch, and the limits between
 # the distillation loss and gradient on the card and on the CPU. The loss
@@ -703,6 +725,7 @@ def phase_resnet(ck, images) -> dict:
     from dfq_tpu_torch.graph import execute
     from dfq_tpu_torch.graph.executor import params_to
     from dfq_tpu_torch.models import resnet18
+    from dfq_tpu_torch.ops import conv_epilogue as cep
 
     prep, model, residual = flagship(resnet18)
     net = Int8FusedNet(model, device=DEVICE)
@@ -713,11 +736,16 @@ def phase_resnet(ck, images) -> dict:
     x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
     with torch.no_grad():
         ck.reset_counts()
+        cep.reset_counts()
         logits = net(x8)
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
         k1_on_tensor_cores("ResNet-18", ck.VARIANTS)
+        epilogue_launches("resnet18", net, BATCH, pin="resnet18")
+        cep.reset_counts()
         ref = ref_net(x8)
+        torch.cuda.synchronize()
+        epilogue_launches("resnet18 plain-kernel net", ref_net, BATCH)
         lg_base = base(x8).cpu().numpy()
     if launches != {"matmul_int8_requant": 1, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
         raise AssertionError(f"ResNet-18 launches {launches}")
@@ -750,7 +778,8 @@ def phase_resnet(ck, images) -> dict:
         if not np.isfinite(on_card).all() or d > rtol * peak:
             raise AssertionError(f"ResNet-18 simulator ({name}) card vs CPU: max abs {d} "
                                  f"> {rtol} x {peak}")
-    print(f"ResNet-18: logits {lg.shape} finite, max abs vs plain {diff}, launches {launches}; "
+    print(f"ResNet-18: logits {lg.shape} finite, max abs vs plain {diff}, launches {launches}, "
+          f"conv epilogue {EPILOGUE_SEEN['resnet18']}; "
           f"baseline engine: fused top-1 in its top 5 {in_top5}, argmax agreement {agree}; "
           f"simulator card vs CPU {sim}", flush=True)
     return {"prep": prep, "model": model, "residual": residual, "net": net, "base": base,
@@ -872,16 +901,81 @@ def k1_on_tensor_cores(label: str, variants: dict) -> None:
 
 def launch_forward(ck, net, x):
     """One forward of ``net`` with the counts reset just before it:
-    ``(output, launches, variants)``; K1 on the tensor cores only."""
+    ``(output, launches, variants)``; K1 on the tensor cores only, and
+    the glue convs' epilogue launched as :func:`epilogue_launches` says."""
     import torch
+
+    from dfq_tpu_torch.ops import conv_epilogue as cep
 
     with torch.no_grad():
         ck.reset_counts()
+        cep.reset_counts()
         out = net(x)
         torch.cuda.synchronize()
     variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
     k1_on_tensor_cores(type(net).__name__, variants)
+    epilogue_launches(type(net).__name__, net, x.shape[0])
     return out, dict(ck.LAUNCHES), variants
+
+
+def epilogue_launches(label: str, net, batch: int, pin: str = None) -> int:
+    """The glue convs' epilogue launches since its counts were reset, as
+    one forward of ``net`` at ``batch`` must make them: one a glue
+    ``conv`` step where the net runs its kernels (``EPILOGUE_PINS[pin]``
+    of them on a pinned path, kept in ``EPILOGUE_SEEN``), none where it
+    runs their plain versions, and no plain run through the wrapper."""
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    steps = len(net.lowering(net.per_device_batch or batch).epilogue_sites)
+    want = steps if net.use_kernels and not net.plain_kernels else 0
+    got = (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS)
+    if got != (want, 0) or (pin is not None and got[0] != EPILOGUE_PINS[pin]):
+        raise AssertionError(f"{label}: conv epilogue launches and plain runs {got}, "
+                             f"{steps} glue conv steps"
+                             + ("" if pin is None else f", {EPILOGUE_PINS[pin]} pinned"))
+    if pin is not None:
+        EPILOGUE_SEEN[label] = got[0]
+    return got[0]
+
+
+def epilogue_accs(net, graph, size: int, batch: int, gen):
+    """``(node, acc, op)`` of each glue conv site of ``net``'s lowering at
+    ``batch``: the site's own product (its route) on a random int8 input,
+    and its packed epilogue."""
+    import torch
+
+    shapes = site_inputs(graph, batch, size)
+    for name, acc_of, op in net.lowering(batch).epilogue_sites:
+        x = torch.randint(-128, 128, shapes[graph[name].inputs[0]], generator=gen,
+                          device=DEVICE, dtype=torch.int8)
+        with torch.no_grad():
+            acc = acc_of(x)
+        del x
+        yield name, acc, op
+
+
+def hold_epilogue(label: str, acc, op, max_err: dict):
+    """The epilogue kernel on ``acc`` against its plain version: bit-equal,
+    or raise; ``max_err["conv_epilogue"]`` keeps the largest difference.
+    Returns the kernel's output."""
+    import torch
+
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    got = cep.conv_epilogue_packed(acc, op)
+    torch.cuda.synchronize()
+    want = cep.conv_epilogue_plain(acc, op)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"conv_epilogue at {label}: {got.dtype}{tuple(got.shape)} vs "
+                             f"plain {want.dtype}{tuple(want.shape)}")
+    err = float((got.double() - want.double()).abs().max())
+    max_err["conv_epilogue"] = max(max_err.get("conv_epilogue", 0.0), err)
+    if not torch.equal(got, want):
+        raise AssertionError(f"conv_epilogue at {label} {tuple(acc.shape)} {acc.dtype}: "
+                             f"{int((got != want).sum())} elements differ from the plain "
+                             f"version (max abs {err})")
+    return got
 
 
 def equal_outputs(label, got, want) -> None:
@@ -945,6 +1039,7 @@ def phase_ssd(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
     inputs = (images - np.float32(127.0)) / np.float32(128.0)
     x8 = torch.from_numpy(inputs[:BATCH]).to(DEVICE)
     (conf, loc), launches, variants = launch_forward(ck, net, x8)
+    epilogue_launches("ssd_lite", net, BATCH, pin="ssd_lite")
     if launches != {"matmul_int8_requant": 30, "dw3x3_int8_requant": 19, "fused_block_int8": 12}:
         raise AssertionError(f"SSD-Lite launches {launches}")
     if variants != {"matmul_int8_requant": {"mma": 30, "stream": 0, "dp4a": 0},
@@ -1054,6 +1149,7 @@ def phase_deeplab(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
                      -2.117, 2.64).astype(np.float32)
     x4 = torch.from_numpy(images[:SEG_BATCH]).to(DEVICE)
     out, launches, variants = launch_forward(ck, net, x4)
+    epilogue_launches("deeplab_mnv2", net, SEG_BATCH, pin="deeplab_mnv2")
     if launches != {"matmul_int8_requant": 38, "dw3x3_int8_requant": 0, "fused_block_int8": 0}:
         raise AssertionError(f"DeepLab launches {launches}")
     if variants["matmul_int8_requant"] != {"mma": 38, "stream": 0, "dp4a": 0}:
@@ -1096,6 +1192,97 @@ def phase_deeplab(ck, wrappers, max_err: dict, gen, out_dir: Path) -> dict:
             "images": images,
             "detail": {"launches": launches, "variants": variants, "card_vs_cpu": card_cpu,
                        "argmax_agree_baseline": agree, "cli": cli}}
+
+
+def phase_epilogue(paths, gen, mem_bw: float, max_err: dict) -> dict:
+    """13a. The glue convs' epilogue kernel (``ops/conv_epilogue.py``) at
+    every glue conv site of the four paths, on the accumulator the site's
+    own product leaves from a random int8 input: bit-equal to its plain
+    version at each of the path's ``batches`` and at its benchmark cell's
+    batch (``EPILOGUE_CELL_BATCH``), where each site is then timed: the
+    kernel from the host (``ms``) and as a CUDA-graph replay
+    (``device_ms``), the plain version (the torch chain it replaced; on the
+    float routes with the int32 NHWC copy the product phase made before),
+    and the bound: the accumulator's ``C`` channels read once and the
+    output written once at the card's memory rate. Then the wrapper's host
+    cost a call against a bare ctypes launch of the same arguments."""
+    import ctypes
+
+    import torch
+
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    sites, by_path = [], {}
+    for path, net, graph, size, batches in paths:
+        cell = EPILOGUE_CELL_BATCH[path]
+        for batch in batches:
+            for name, acc, op in epilogue_accs(net, graph, size, batch, gen):
+                hold_epilogue(f"{path} {name} b{batch}", acc, op, max_err)
+        mine = []
+        for name, acc, op in epilogue_accs(net, graph, size, cell, gen):
+            out = hold_epilogue(f"{path} {name} b{cell}", acc, op, max_err)
+            shape = tuple(out.shape)
+            variant = next(cep.EPI_VARIANTS[a.variant] for k, a in op.launch_args.items()
+                           if tuple(k[0]) == shape and k[2] == acc.dtype)
+            nbytes = out.numel() * (acc.element_size() + out.element_size())
+            mine.append({
+                "path": path, "batch": cell, "node": name, "shape": list(shape),
+                "acc": str(acc.dtype).split(".")[1], "acc_strides": list(acc.stride()),
+                "out": str(out.dtype).split(".")[1], "variant": variant,
+                "ms": time_ms(lambda: cep.conv_epilogue_packed(acc, op), reps=10, rounds=3),
+                "device_ms": graph_ms(lambda: cep.conv_epilogue_packed(acc, op), reps=10,
+                                      rounds=3),
+                "plain_ms": time_ms(lambda: cep.conv_epilogue_plain(acc, op), reps=3, rounds=3),
+                "bytes": nbytes, "bound_ms": nbytes / mem_bw * 1e3})
+            del acc, out
+        torch.cuda.empty_cache()
+        by_path[path] = {"batch": cell, "sites": len(mine),
+                         **{k: sum(t[k] for t in mine)
+                            for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+        sites += mine
+    print("conv epilogue per site: path b node shape acc -> out variant | ms (host calls) | "
+          "device ms (graph replay) | plain ms | bound ms (bytes) | bound / device ms")
+    for t in sites:
+        print(f"  {t['path']} b{t['batch']} {t['node']} {tuple(t['shape'])} {t['acc']} -> "
+              f"{t['out']} {t['variant']} | {t['ms']:.4f} | {t['device_ms']:.4f} | "
+              f"{t['plain_ms']:.3f} | {t['bound_ms']:.4f} | "
+              f"{t['bound_ms'] / t['device_ms']:.1%}", flush=True)
+    for path, r in by_path.items():
+        print(f"conv epilogue {path} b{r['batch']}: {r['sites']} sites, ms {r['ms']:.4f}, device "
+              f"ms {r['device_ms']:.4f}, plain ms {r['plain_ms']:.3f}, bound ms "
+              f"{r['bound_ms']:.4f}", flush=True)
+
+    # the wrapper's host cost: ResNet-18's last glue conv at b1 (a short
+    # kernel, so the host's issue rate is what a loop of calls measures)
+    path, net, graph, size, _ = next(p for p in paths if p[0] == "resnet18")
+    name, acc, op = list(epilogue_accs(net, graph, size, 1, gen))[-1]
+    out = cep.conv_epilogue_packed(acc, op)
+    v = cep._nhwc_view(acc, op.channels)
+    args = next(a for k, a in op.launch_args.items() if tuple(k[0]) == tuple(out.shape))
+    fn, stream = cep._fn(), torch.cuda.current_stream().cuda_stream
+    calls = 2000
+
+    def per_call_us(call) -> float:
+        per = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return float(np.median(per))
+
+    host = {"node": f"resnet18 {name} b1", "shape": list(out.shape),
+            "wrapper_us": per_call_us(lambda: cep.conv_epilogue_packed(acc, op)),
+            "bare_launch_us": per_call_us(lambda: fn(ctypes.byref(args), v.data_ptr(),
+                                                     out.data_ptr(), stream))}
+    host["wrapper_ms_per_forward"] = {p: host["wrapper_us"] * n / 1e3
+                                      for p, n in EPILOGUE_PINS.items()}
+    print(f"conv epilogue host cost a call ({host['node']}): wrapper {host['wrapper_us']:.2f} "
+          f"us, bare ctypes launch {host['bare_launch_us']:.2f} us; wrapper ms a forward "
+          f"{host['wrapper_ms_per_forward']}", flush=True)
+    return {"sites": sites, "by_path": by_path, "host": host}
 
 
 def phase_cli(out_dir: Path) -> dict:
@@ -1267,6 +1454,7 @@ def phase_calibration(ck, wrappers, max_err: dict, gen, images) -> dict:
     ref_net = Int8FusedNet(model, device=DEVICE, plain_kernels=True)
     x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
     logits, launches, variants = launch_forward(ck, net, x8)
+    epilogue_launches("mobilenet_v2_calibrated", net, BATCH, pin="mobilenet_v2")
     if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                     "fused_block_int8": 12}:
         raise AssertionError(f"calibrated path launches {launches}")
@@ -1439,6 +1627,7 @@ t0 = float(sys.argv[1])
 from pathlib import Path
 import numpy as np, torch
 from dfq_tpu_torch.ops import _build
+from dfq_tpu_torch.ops import conv_epilogue as cep
 from dfq_tpu_torch.ops import cuda_int8 as ck
 _build.BUILD_DIR = Path(tempfile.mkdtemp(dir=sys.argv[5]))
 if sys.argv[2] == "1":
@@ -1454,11 +1643,13 @@ else:
     net = Int8FusedNet(model, params_f32=residual)
 x = torch.from_numpy(np.load(sys.argv[4])).cuda()
 ck.reset_counts()
+cep.reset_counts()
 with torch.no_grad():
     y = net(x).cpu().numpy()
 first = time.time() - t0
 np.save(sys.argv[4] + ".out.npy", y)
 print(json.dumps({"first_logits_s": first, "launches": dict(ck.LAUNCHES),
+                  "epilogue_launches": cep.EPILOGUE_LAUNCHES,
                   "built": sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))}))
 """
 
@@ -1475,6 +1666,7 @@ def phase_aot(root: Path) -> dict:
 
     from dfq_tpu_torch.cli import run_cls
     from dfq_tpu_torch.io import aot
+    from dfq_tpu_torch.ops import _build
 
     work = root / "build" / "aot_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1506,11 +1698,16 @@ def phase_aot(root: Path) -> dict:
                                      f"process's (max abs {float(np.abs(got - want).max())})")
         if runs["aot"]["built"]:
             raise AssertionError(f"the AOT cold start built {runs['aot']['built']}")
-        if len(runs["nvcc"]["built"]) != 3:
+        if len(runs["nvcc"]["built"]) != len(_build.SOURCES):
             raise AssertionError(f"the nvcc cold start built {runs['nvcc']['built']}")
         if runs["aot"]["launches"] != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                                        "fused_block_int8": 12}:
             raise AssertionError(f"AOT forward launches {runs['aot']['launches']}")
+        for label, run in runs.items():
+            if run["epilogue_launches"] != EPILOGUE_PINS["mobilenet_v2"]:
+                raise AssertionError(f"{label} cold start: conv epilogue launches "
+                                     f"{run['epilogue_launches']}")
+            EPILOGUE_SEEN[f"mobilenet_v2_aot_{label}"] = run["epilogue_launches"]
         # a payload made for another card is refused
         meta_file = art / aot.AOT_DIR / "meta.json"
         meta = json.loads(meta_file.read_text())
@@ -1634,6 +1831,7 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
         hold_sites(graph, size, checks, wrappers, max_err, gen)
         x = torch.from_numpy(images).to(DEVICE)
         out, launches, variants = launch_forward(ck, net, x)
+        EPILOGUE_SEEN[name] = epilogue_launches(name, net, batch)
         if launches != want:
             raise AssertionError(f"{name} launches {launches}, the JAX routing {want}")
         if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
@@ -1678,7 +1876,8 @@ def phase_zoo(ck, wrappers, max_err: dict, gen, peaks) -> dict:
                          "plain_ms": sum(t["plain_ms"] for t in ks),
                          "library_device_ms": sum(t["library_device_ms"] or 0.0 for t in ks)}
                      for k in wrappers if (ks := [t for t in mine if t["kernel"] == k])}
-        result[name] = {"launches": launches, "variants": variants, "card_vs_cpu": card_cpu,
+        result[name] = {"launches": launches, "epilogue_launches": EPILOGUE_SEEN[name],
+                        "variants": variants, "card_vs_cpu": card_cpu,
                         "exact_products": exact["checks"], "forward_ms": ms, "peak_bytes": peak,
                         "batch": batch, "size": size, "prepare_s": prep_s,
                         "ranges": "data-free" if data_free else "calibrated",
@@ -1779,6 +1978,7 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
         make_tp_int8_forward,
         tp_mesh,
     )
+    from dfq_tpu_torch.ops import conv_epilogue as cep
     from dfq_tpu_torch.parallel import multihost
     from dfq_tpu_torch.parallel.eval import count_correct
 
@@ -1807,6 +2007,7 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
         fwd = make_sharded_forward(None, residual, mesh, int8_model=model, engine="fused")
         with torch.no_grad():
             ck.reset_counts()
+            cep.reset_counts()
             out = fwd(x)
             torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
@@ -1815,6 +2016,12 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
         n = mesh.size
         if launches != {k: v * n for k, v in per_shard.items()}:
             raise AssertionError(f"{path}: launches {launches} over {n} shards")
+        EPILOGUE_SEEN[path] = cep.EPILOGUE_LAUNCHES
+        if (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS) != (
+                EPILOGUE_PINS["mobilenet_v2"] * n, 0):
+            raise AssertionError(f"{path}: conv epilogue launches and plain runs "
+                                 f"{(cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS)} over "
+                                 f"{n} shards")
         if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
             raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
         equal_outputs(f"{path} vs the single forward", out.gather(), single)
@@ -1890,8 +2097,14 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
     seg_eval = make_sharded_seg_eval(None, seg_residual, seg_mesh, 21, int8_model=seg_model,
                                      engine="fused")
     ck.reset_counts()
+    cep.reset_counts()
     conf = seg_eval(xs, gt)
     launches_by_path[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = dict(ck.LAUNCHES)
+    EPILOGUE_SEEN[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = cep.EPILOGUE_LAUNCHES
+    if (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS) != (
+            EPILOGUE_PINS["deeplab_mnv2"] * SEG_SHARDS, 0):
+        raise AssertionError(f"sharded DeepLab conv epilogue launches and plain runs "
+                             f"{(cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS)}")
     if dict(ck.LAUNCHES) != {"matmul_int8_requant": 38 * SEG_SHARDS, "dw3x3_int8_requant": 0,
                              "fused_block_int8": 0}:
         raise AssertionError(f"sharded DeepLab launches {ck.LAUNCHES}")
@@ -2266,6 +2479,7 @@ def main() -> int:
     from dfq_tpu_torch.graph.executor import params_to
     from dfq_tpu_torch.models import mobilenet_v2
     from dfq_tpu_torch.ops import _build
+    from dfq_tpu_torch.ops import conv_epilogue as cep
     from dfq_tpu_torch.ops import cuda_int8 as ck
     from dfq_tpu_torch.serve import MicroBatcher
     from dfq_tpu_torch.utils.profiling import card_peaks
@@ -2317,6 +2531,7 @@ def main() -> int:
     # (the two 1.6 M-row K1 sites, the K2 sites) and for K3's largest and
     # widest blocks
     max_err = dict.fromkeys(wrappers, 0.0)
+    max_err["conv_epilogue"] = 0.0
     k1 = [s for s in net.kernel_sites if s[1] == "matmul_int8_requant"]
     shapes1 = site_inputs(graph, 1, SIZE)
 
@@ -2342,12 +2557,16 @@ def main() -> int:
     x8 = torch.from_numpy(images[:BATCH]).to(DEVICE)
     with torch.no_grad():
         ck.reset_counts()
+        cep.reset_counts()
         logits = net(x8)
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
         variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
+        epilogue_launches("mobilenet_v2", net, BATCH, pin="mobilenet_v2")
+        cep.reset_counts()
         ref = ref_net(x8)
         torch.cuda.synchronize()
+        epilogue_launches("mobilenet_v2 plain-kernel net", ref_net, BATCH)
     if launches != {"matmul_int8_requant": 11, "dw3x3_int8_requant": 5,
                     "fused_block_int8": 12}:
         raise AssertionError(f"main path launches {launches}")
@@ -2365,7 +2584,8 @@ def main() -> int:
     if diff > TOL or not (lg.argmax(-1) == rf.argmax(-1)).all():
         raise AssertionError(f"logits vs plain versions: max abs {diff}")
     print(f"main path: logits {lg.shape} finite, max abs vs plain {diff}, "
-          f"launches {launches}, variants {variants}", flush=True)
+          f"launches {launches}, variants {variants}, conv epilogue "
+          f"{EPILOGUE_SEEN['mobilenet_v2']} (plain-kernel net 0)", flush=True)
     detail["main_path"] = {"launches": launches, "variants": variants,
                            "max_abs_vs_plain": diff,
                            "argmax": lg.argmax(-1).tolist()}
@@ -2451,6 +2671,15 @@ def main() -> int:
     detail["ssd_lite"] = ssd["detail"]
     seg = phase_deeplab(ck, wrappers, max_err, gen, out_dir)
     detail["deeplab_mnv2"] = seg["detail"]
+
+    # 13a. the glue convs' epilogue at every glue conv site of the four paths
+    epi = phase_epilogue(
+        [("mobilenet_v2", net, graph, SIZE, (BATCH, ODD_BATCH)),
+         ("resnet18", r18["net"], r18["model"].graph, SIZE, (BATCH, ODD_BATCH)),
+         ("ssd_lite", ssd["net"], ssd["model"].graph, SSD_SIZE, (BATCH, ODD_BATCH)),
+         ("deeplab_mnv2", seg["net"], seg["model"].graph, SEG_SIZE, (SEG_BATCH, ODD_BATCH))],
+        gen, mem_bw, max_err)
+    detail["epilogue"] = epi
 
     # 9. every exact int8 product that is not a kernel, on the four paths
     base = Int8Net(model, residual, device=DEVICE)
@@ -2650,6 +2879,19 @@ def main() -> int:
                                  **{p: n[k] for p, n in par["launches"].items()},
                                  **{f"policies/{p}": n[k] for p, n in pol["launches"].items()}},
         })
+    # the glue convs' epilogue: glue, no K-site; its times sum every glue
+    # conv site of the four paths at their benchmark cells' batches
+    ep_sum = {k: sum(r[k] for r in epi["by_path"].values())
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    line.append({
+        "name": "conv_epilogue", "route": "cuda",
+        "source": "dfq_tpu_torch/csrc/conv_epilogue_int8.cu", "replaces": None,
+        "launches": EPILOGUE_SEEN["mobilenet_v2"], "max_abs_err": max_err["conv_epilogue"],
+        "batch": {p: r["batch"] for p, r in epi["by_path"].items()}, **ep_sum,
+        "bound_by": "bytes", "library_ms": None, "by_path": epi["by_path"],
+        "host_us": {k: epi["host"][k] for k in ("wrapper_us", "bare_launch_us")},
+        "launches_by_path": dict(EPILOGUE_SEEN),
+    })
     for mod in ("jax", "dfq_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")

@@ -317,9 +317,11 @@ def _tap_products(views, prod: Int8Product) -> torch.Tensor:
     return outs[0] if groups == 1 else torch.cat(outs, dim=-1)
 
 
-def _conv_valid(xp: torch.Tensor, node, prod: Int8Product) -> torch.Tensor:
+def _conv_valid(xp: torch.Tensor, node, prod: Int8Product, raw: bool = False) -> torch.Tensor:
     """The unpadded (VALID) int8 NHWC conv of ``xp`` -> int32 NHWC by
-    ``prod``'s route; ``node``'s padding is not read."""
+    ``prod``'s route; ``node``'s padding is not read. ``raw`` leaves a
+    float route's output as ``F.conv2d`` gives it (NCHW by its shape,
+    exact integers), for an epilogue that reads it in place."""
     a = node.attrs
     B = xp.shape[0]
     if prod.route in ("f64", "f32"):
@@ -327,7 +329,7 @@ def _conv_valid(xp: torch.Tensor, node, prod: Int8Product) -> torch.Tensor:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             acc = F.conv2d(xp.permute(0, 3, 1, 2).to(dtype), prod.w, stride=a["stride"],
                            dilation=a["dilation"], groups=a["groups"])
-        return acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
+        return acc if raw else acc.to(torch.int32).permute(0, 2, 3, 1).contiguous()
     views, oh, ow = shifted_views(xp, node)
     if prod.route == "im2col":
         patches = torch.cat(views, dim=-1)
@@ -342,11 +344,13 @@ def _zp_pad(xq: torch.Tensor, node, zp: int) -> torch.Tensor:
     return F.pad(xq, (0, 0, pw, pw, ph, ph), value=zp) if (ph, pw) != (0, 0) else xq
 
 
-def int8_conv(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:
+def int8_conv(xq: torch.Tensor, node, prod: Int8Product, zp: int,
+              raw: bool = False) -> torch.Tensor:
     """int8 NHWC conv -> int32 NHWC, with zero-point padding: real 0
     quantizes to ``zp``, so the spatial padding holds ``zp`` for the
-    ``acc - zp * colsum(w)`` fold to be exact at the borders."""
-    return _conv_valid(_zp_pad(xq, node, zp), node, prod)
+    ``acc - zp * colsum(w)`` fold to be exact at the borders. ``raw``: as
+    :func:`_conv_valid`'s."""
+    return _conv_valid(_zp_pad(xq, node, zp), node, prod, raw)
 
 
 def int8_conv_shift9(xq: torch.Tensor, node, prod: Int8Product, zp: int) -> torch.Tensor:

@@ -17,8 +17,10 @@ fuse_blocks=True``):
   runs them as XLA convs, and the port's outputs are its bit for bit;
 - other lowered convs (MobileNetV2's k3s2 stem, ResNet-18's stem, 3x3 and
   downsample convs, DeepLab's explicitly padded depthwise convs) run as
-  exact integer convs (:func:`~dfq_tpu_torch.engine.int8.int8_conv`) with
-  the same epilogue in plain PyTorch;
+  exact integer convs (:func:`~dfq_tpu_torch.engine.int8.int8_conv`) and
+  the same epilogue in one CUDA pass over their accumulator
+  (:mod:`~dfq_tpu_torch.ops.conv_epilogue`; under ``use_kernels`` and on
+  CUDA, else its plain PyTorch version);
 - ReLU is a clamp at the zero point and ReLU6 a clamp at quant(6), both in
   the int domain; residual adds dequantize both operands through their
   site grids and requantize; folded BN/identity pass int8 through;
@@ -97,6 +99,7 @@ from dfq_tpu_torch.engine.int8 import (
 )
 from dfq_tpu_torch.graph.executor import apply_op, highest_precision, params_to
 from dfq_tpu_torch.graph.ir import Graph
+from dfq_tpu_torch.ops import conv_epilogue
 from dfq_tpu_torch.ops import cuda_int8 as kernels
 from dfq_tpu_torch.ops.rounding import (
     f32,
@@ -533,20 +536,23 @@ def _is_dw2(node) -> bool:
 
 # ``step(env, done, spans)``: ``spans`` opens the step's phase ranges
 Step = Callable[[Dict[str, Any], set, bool], None]
-Acc = Callable[[torch.Tensor], torch.Tensor]  # int8 NHWC input -> int32 accumulator
+Acc = Callable[[torch.Tensor], torch.Tensor]  # int8 NHWC input -> accumulator (_route)
 
 
 @dataclasses.dataclass
 class Lowering:
     """The packed forward of one resolved :class:`Policy`: the steps as
     ``(node, kind, step)`` (kind: one of :data:`STEP_KINDS`), the kernel
-    sites they launch and the exact int8 products of the other lowered
-    layers."""
+    sites they launch, the exact int8 products of the other lowered
+    layers, and the glue ``conv`` steps as ``(node, product, epilogue)``:
+    the route (``xq -> acc``) and the packed
+    :class:`~dfq_tpu_torch.ops.conv_epilogue.ConvEpilogue` of each."""
 
     policy: Policy
     steps: List[Tuple[str, str, Step]]
     kernel_sites: List[Tuple[str, str, Any]]
     products: Dict[str, Any]
+    epilogue_sites: List[Tuple[str, Acc, Any]] = dataclasses.field(default_factory=list)
 
 
 class Int8FusedNet(nn.Module):
@@ -631,6 +637,7 @@ class Int8FusedNet(nn.Module):
         self.model = model
         self.params = params_to(params_f32 or {}, self.device)
         self.use_kernels = use_kernels
+        self.plain_kernels = plain_kernels
         self.options = dict(stem_s2d=stem_s2d, dw_dense_max_ch=dw_dense_max_ch,
                             dw_dense_max_h=dw_dense_max_h)
         self.b2s_min_h = b2s_min_h
@@ -649,6 +656,9 @@ class Int8FusedNet(nn.Module):
         # CPU), or its plain version on any device
         impl = "plain" if plain_kernels else "packed"
         self._run = {k: getattr(kernels, f"{k}_{impl}") for k in kernels.LAUNCHES}
+        # the glue convs' epilogue: its kernel's wrapper under use_kernels
+        self._epilogue = getattr(
+            conv_epilogue, f"conv_epilogue_{impl if use_kernels else 'plain'}")
         self.input_name = graph.input_names()[0]
         self.outputs = graph.outputs
         self._packed: Dict[Tuple[str, str], Any] = {}
@@ -683,9 +693,6 @@ class Int8FusedNet(nn.Module):
         return self._low
 
     # -- packing ----------------------------------------------------------
-    def _t(self, a, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype).contiguous()
-
     def _bias(self, layer) -> np.ndarray:
         if layer.bias is not None:
             return layer.bias
@@ -775,12 +782,13 @@ class Int8FusedNet(nn.Module):
 
             return "k2", dw
         # any other layer: an exact integer product by the policy's route,
-        # and the epilogue in plain torch
+        # and the epilogue (ops/conv_epilogue.py) on its accumulator
         acc_of = self._route(node, layer, is_stem)
-        wsum = self._t(layer.wsum, torch.int32)
-        comb_t = self._t(comb, torch.float32)
-        bias = None if layer.bias is None else self._t(layer.bias, torch.float32)
-        zp = layer.in_zp
+        ep = self._pack((name, "epilogue"), lambda: conv_epilogue.pack_conv_epilogue(
+            layer.wsum, comb, layer.bias, zp=layer.in_zp, grid=sp, device=self.device))
+        epilogue = self._epilogue
+        if name not in self._fused_away:
+            self._low.epilogue_sites.append((name, acc_of, ep))
 
         def conv(env, done, spans):
             with _phase(spans, REQUANT):
@@ -788,10 +796,7 @@ class Int8FusedNet(nn.Module):
             with _phase(spans, PRODUCT):
                 acc = acc_of(xq)
             with _phase(spans, EPILOGUE):
-                a = (acc - zp * wsum).to(torch.float32)
-                # f32(acc) * comb + bias: one FMA under XLA:CPU
-                out = a * comb_t if bias is None else fma_f32(a, comb_t, bias)
-                self._emit(env, name, out)
+                self._store(env, name, epilogue(acc, ep), sp)
 
         return "conv", conv
 
@@ -807,8 +812,9 @@ class Int8FusedNet(nn.Module):
 
     def _route(self, node, layer, is_stem: bool) -> Acc:
         """The exact int8 product of a lowered layer that no kernel takes,
-        by the JAX engine's policy order, as ``xq -> int32 acc``; records
-        its product in ``products``."""
+        by the JAX engine's policy order, as ``xq -> acc`` (int32 NHWC, or
+        a float route's raw NCHW output: :func:`int8_conv`'s ``raw``);
+        records its product in ``products``."""
         name, zp, qw = node.name, layer.in_zp, layer.qweight
         products = self._low.products
         if node.op == "linear":
@@ -825,7 +831,7 @@ class Int8FusedNet(nn.Module):
             def s2d(xq):
                 if xq.shape[1] % 2:
                     return plain(xq)
-                return int8_conv(_space_to_depth2(xq, zp, pad=1), node_s, prod_s, zp)
+                return int8_conv(_space_to_depth2(xq, zp, pad=1), node_s, prod_s, zp, raw=True)
 
             products[name] = prod_s
             return s2d
@@ -841,7 +847,7 @@ class Int8FusedNet(nn.Module):
             def dense(xq):
                 if xq.shape[1] > max_h:
                     return grouped(xq)
-                return int8_conv(xq, node_d, prod_d, zp)
+                return int8_conv(xq, node_d, prod_d, zp, raw=True)
 
             products[name] = prod_d
             return dense
@@ -880,7 +886,7 @@ class Int8FusedNet(nn.Module):
                 if (min_h and xq.shape[0] > 1 and xq.shape[1] >= min_h
                         and b2s_applicable(node, xq.shape[1])):
                     return int8_conv_b2s(xq, node, prod_b, zp)
-                return int8_conv(xq, node, prod, zp)
+                return int8_conv(xq, node, prod, zp, raw=True)
 
         self._low.products[name] = prod
         if not cpad:

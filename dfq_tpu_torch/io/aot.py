@@ -5,10 +5,10 @@ The JAX artifact can carry the fused forward's compiled XLA executable.
 The port has no executable to serialize: the fused engine
 (:class:`~dfq_tpu_torch.engine.int8_fused.Int8FusedNet`) is built from the
 artifact in Python, and its only compile step is ``nvcc``, which builds
-the three kernel libraries of ``dfq_tpu_torch/csrc`` at first use
+the kernel libraries of ``dfq_tpu_torch/csrc`` at first use
 (:mod:`dfq_tpu_torch.ops._build`). So ``<artifact>/aot/`` holds:
 
-- those three libraries (``<source stem>-<hash>.so``), as the exporting
+- those libraries (``<source stem>-<hash>.so``), as the exporting
   process built and ran them;
 - ``meta.json``: the card's name and compute capability,
   ``torch.__version__``, ``torch.version.cuda``, the ``nvcc`` release that

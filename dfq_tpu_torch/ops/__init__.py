@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the int8 hot path, with their plain
-PyTorch versions (see :mod:`dfq_tpu_torch.ops.cuda_int8`)."""
+PyTorch versions (see :mod:`dfq_tpu_torch.ops.cuda_int8`, and
+:mod:`dfq_tpu_torch.ops.conv_epilogue` for the glue convs' epilogue)."""
 
 from dfq_tpu_torch.ops.cuda_int8 import (  # noqa: F401
     LAUNCHES,

@@ -26,7 +26,10 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
-SOURCES = ("matmul_int8_requant.cu", "dw3x3_int8_requant.cu", "fused_block_int8.cu")
+SOURCES = (
+    "matmul_int8_requant.cu", "dw3x3_int8_requant.cu", "fused_block_int8.cu",
+    "conv_epilogue_int8.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",

@@ -25,7 +25,11 @@ sharded fused forward at 3 and 4 shards on one card, and each wrapper
 launching on its input's device and stream, and the fused engine's conv
 rewrites (shift9, im2col, batch-to-space, channel padding, dense-diagonal
 depthwise, the s2d stem) bit-equal to ``int8_conv`` at SSD-Lite's and
-DeepLab's shapes.
+DeepLab's shapes, and the glue convs' epilogue kernel
+(``ops/conv_epilogue.py``) bit-equal to its plain version in each of its
+variants, on the current stream and in a CUDA graph, and at every glue
+conv site of the four benchmark cells' configurations, one launch a glue
+``conv`` step.
 """
 
 import numpy as np
@@ -853,3 +857,141 @@ def test_kernels_launch_on_the_inputs_device_and_stream(dev):
             graph.replay()
             torch.cuda.synchronize(d)
         _equal(out, want)
+
+
+# -- the glue convs' epilogue (ops/conv_epilogue.py) -----------------------------
+
+def _epi_acc(dev, layout: str, rng):
+    """An accumulator of [3, 17, 19, C] in one of the layouts the product
+    routes leave, and the kernel variant that layout takes."""
+    b, h, w = 3, 17, 19
+    if layout.startswith("int32"):
+        c, pitch, off = {"int32_pitch": (48, 56, 0), "int32_ragged": (21, 24, 0),
+                         "int32_unaligned": (48, 48, 1)}[layout]
+        v = rng.integers(-2**31, 2**31, b * h * w * pitch + off, dtype=np.int64)
+        v[::7] = rng.integers(-3000, 3000, v[::7].shape)  # values that quantize inside the grid
+        rows = _t(v.astype(np.int32), dev)[off:].view(b * h * w, pitch)[:, :c]
+        variant = "rows_vec" if layout == "int32_pitch" else "rows"
+        return rows.reshape(b, h, w, c), c, variant
+    c = 42 if layout == "f32_cl_ragged" else 40
+    v = rng.integers(-2**24, 2**24 + 1, (b, c, h, w)).astype(np.float32)
+    v[..., ::3] = rng.integers(-3000, 3000, v[..., ::3].shape)
+    acc = _t(v, dev)
+    if layout.startswith("f32_cl"):
+        return (acc.to(memory_format=torch.channels_last), c,
+                "rows" if layout == "f32_cl_ragged" else "rows_vec")
+    if layout == "f32_nchw_strided":  # every other channel plane of an NCHW tensor
+        return _t(np.repeat(v, 2, axis=1), dev)[:, ::2], c, "rows"
+    return acc, c, "rows"
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("out_i8", [True, False], ids=["int8", "f32"])
+@pytest.mark.parametrize("layout", ["int32_pitch", "int32_ragged", "int32_unaligned",
+                                    "f32_nchw", "f32_nchw_strided", "f32_cl",
+                                    "f32_cl_ragged"])
+def test_conv_epilogue_kernel_equals_plain(dev, layout, out_i8, bias):
+    """Each variant of the epilogue kernel on the layouts it reads, with
+    and without a bias, onto int8 codes and f32, bit-equal to the plain
+    version (from the int32 and f32-exact extremes to values inside the
+    grid)."""
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    rng = np.random.default_rng(len(layout) + 2 * out_i8 + bias)
+    acc, c, variant = _epi_acc(dev, layout, rng)
+    op = cep.pack_conv_epilogue(
+        rng.integers(-20000, 20000, c).astype(np.int32),
+        rng.uniform(1e-5, 3e-3, c).astype(np.float32),
+        rng.normal(0, 2, c).astype(np.float32) if bias else None, zp=-9,
+        grid=(0.0417, -5) if out_i8 else None, device=dev)
+    v = cep._nhwc_view(acc, c)
+    B, H, W, _ = v.shape
+    plan = cep.conv_epilogue_plan(B, H, W, c, v.stride(), ck._aligned16(v), ck._sm_count(dev))
+    assert plan.variant == variant
+    cep.reset_counts()
+    got = cep.conv_epilogue_packed(acc, op)
+    assert (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS) == (1, 0)
+    _equal(got, cep.conv_epilogue_plain(acc, op))
+
+
+def test_conv_epilogue_launches_on_the_current_stream_and_in_a_graph(dev):
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    rng = np.random.default_rng(11)
+    acc, c, _ = _epi_acc(dev, "int32_pitch", rng)
+    op = cep.pack_conv_epilogue(rng.integers(-20000, 20000, c).astype(np.int32),
+                                np.full(c, 1e-3, np.float32), np.zeros(c, np.float32), zp=3,
+                                grid=(0.05, 1), device=dev)
+    want = cep.conv_epilogue_plain(acc, op)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = cep.conv_epilogue_packed(acc, op)
+    side.synchronize()
+    _equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    cep.conv_epilogue_packed(acc, op)  # warm-up outside the capture
+    torch.cuda.synchronize(dev)
+    with torch.cuda.graph(graph):
+        out = cep.conv_epilogue_packed(acc, op)
+    graph.replay()
+    _equal(out, want)
+
+
+# the four benchmark cells' configurations: builder, QuantConfig flags, image
+# size, and the fused engine's glue conv steps (ops/conv_epilogue.py launches)
+_EPI_MODELS = {
+    "mobilenet_v2_224": ("mobilenet_v2", {}, {}, 224, 1),
+    "resnet18_224": ("resnet18", {}, {}, 224, 20),
+    "ssdlite_mobilenet_v2_300": ("mobilenet_v2_ssd_lite", {"num_classes": 21},
+                                 {"delete_single": True, "is_detection": True}, 300, 1),
+    "deeplab_mobilenet_v2_513": ("deeplab_mobilenet_v2", {"n_class": 21, "output_stride": 16,
+                                                          "input_size": 513}, {}, 513, 23),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_EPI_MODELS))
+def test_conv_epilogue_at_every_glue_conv_site(dev, name, monkeypatch):
+    """Every glue conv of the four cells' configurations at b2: the kernel
+    bit-equal to its plain version on the accumulator the site's route
+    leaves, one launch a glue ``conv`` step, K1/K2/K3 launched at their
+    sites as before, and the forward bit-equal to the plain-kernel net's."""
+    from dfq_tpu_torch import models
+    from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+    from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+    builder, kwargs, flags, size, n_conv = _EPI_MODELS[name]
+    g = getattr(models, builder)(**kwargs)
+    prep = prepare(g, models.init_params(g, seed=0, bn_stats="random"),
+                   QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
+                               correction=True, bits_bias=16, **flags))
+    model = lower_int8(prep)
+    residual = {k: v for k, v in prep.params.items() if k not in model.layers}
+    kernel, sites = cep.conv_epilogue_packed, []
+
+    def checking(acc, op):
+        got = kernel(acc, op)
+        _equal(got, cep.conv_epilogue_plain(acc, op))
+        sites.append(acc.dtype)
+        return got
+
+    monkeypatch.setattr(cep, "conv_epilogue_packed", checking)
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    assert sum(k == "conv" for _, k, _ in net.lowering(2).steps) == n_conv
+    x = _t(np.random.default_rng(size).normal(0, 1, (2, size, size, 3)).astype(np.float32), dev)
+    ck.reset_counts()
+    cep.reset_counts()
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    assert cep.EPILOGUE_LAUNCHES == len(sites) == n_conv
+    assert ck.LAUNCHES == {k: sum(1 for _, kk, _ in net.kernel_sites if kk == k)
+                           for k in ck.LAUNCHES}
+    cep.reset_counts()
+    with torch.no_grad():
+        want = Int8FusedNet(model, device=dev, params_f32=residual, plain_kernels=True)(x)
+    assert cep.EPILOGUE_LAUNCHES == 0
+    for o, w in zip(out if isinstance(out, tuple) else (out,),
+                    want if isinstance(want, tuple) else (want,)):
+        _equal(o, w)
