@@ -112,10 +112,13 @@ Phases, in order; any failure exits non-zero:
    benchmark cell's batch (MobileNetV2, ResNet-18, SSD-Lite 128, DeepLab
    32), where each site is timed (host calls, CUDA-graph replays, the
    plain version) beside its byte bound; the wrapper's host cost a call
-   against a bare launch. Around every fused forward of every phase the
-   epilogue launches once a glue ``conv`` step of the net's lowering and
-   never under ``plain_kernels`` or ``use_kernels=False``, with no plain
-   run through its wrapper; the main paths pin that at 1 / 20 / 1 / 23
+   against a bare launch. Around every fused forward of every phase whose
+   launches are counted (run step by step, ``step_by_step``, or in a
+   sharded path the trace of a call that only replays,
+   ``replayed_kernels``) the epilogue launches once a glue ``conv`` step
+   of the net's lowering and never under ``plain_kernels`` or
+   ``use_kernels=False``, with no plain run through its wrapper; the main
+   paths pin that at 1 / 20 / 1 / 23
    (MobileNetV2, also calibrated, AOT and a shard; ResNet-18; SSD-Lite;
    DeepLab, also a shard) (``EPILOGUE_PINS``).
 
@@ -182,15 +185,19 @@ Phases, in order; any failure exits non-zero:
    name a device more than once): MobileNetV2 224x224 at b128 through
    ``make_sharded_forward`` and ``make_sharded_eval`` (fused engine) on
    ``data_mesh()`` and on 4 and 3 shards of the card (b32; 43 / 43 / 42):
-   the logits bit-equal to the single forward, the counters equal, 11 / 5
-   / 12 launches a shard, every kernel site bit-equal to its plain version
+   the logits bit-equal to the single forward (a new replica's first
+   call and a call that only replays its graph), the counters equal,
+   11 / 5 / 12 kernel calls a shard in the trace of the replaying call,
+   every kernel site bit-equal to its plain version
    at b32 and b42, the forward's ms beside the single forward's at the
    global and the shard batches; 6 host batches of b128 through
    ``make_streaming_eval`` (depth 2) and the synchronous loop (counters
    equal, ms a batch) and the host syncs of the fused forward and of a
    stream, as ``torch.cuda.set_sync_debug_mode("warn")`` reports them;
    DeepLab 513x513 b4 on 2 shards (``make_sharded_seg_eval``: the
-   confusion matrix equal to ``SegEvaluator``'s on the single forward);
+   confusion matrix equal to ``SegEvaluator``'s on the single forward, on
+   the first call and on a traced call that only replays, whose trace
+   shows 38 K1 calls a shard);
    the distillation step at b64 (f32) on 4 shards against the
    single-device step (loss within ``PAR_LOSS_RTOL``, gradient within
    ``DIS_GRAD_RTOL`` of its max, both read from the steps' own Adam
@@ -224,7 +231,20 @@ Phases, in order; any failure exits non-zero:
    raced again); ``roofline_report`` of MobileNetV2 b128 with the card's
    peaks beside the measured default forward.
 
-Phases 12, 13 and 13a run after 10 and before 11, and 14 to 19 after 11. It
+20. the fused forward as a CUDA graph: on MobileNetV2, ResNet-18, SSD-Lite
+   and DeepLab at their benchmark cells' batches (b128, DeepLab b32), a
+   new net's first forward runs step by step and its second captures the
+   graph: every replayed forward bit-equal to the step-by-step forward on
+   the same images, a result untouched by a later call on other images,
+   ``GRAPH_COUNTS`` moved by one capture and the replays, the first
+   forward's launches (by kernel, and the epilogue's) one a site of the
+   lowering, and in a ``torch.profiler`` trace of a replayed forward each
+   kernel's device calls (the epilogue's too, named as the benchmark's
+   trace names them) one a site as well; the ms a forward back to back and the
+   host ms a forward, step by step and replayed, and the device memory
+   the caching allocator reserves before and after the capture.
+
+Phases 12, 13 and 13a run after 10 and before 11, and 14 to 20 after 11. It
 prints the ``kernels`` JSON line (with each kernel's launches on each
 model's path: the calibrated, the AOT, the zoo's and the sharded
 included; the epilogue's row last), then the card line, then as the last line ``{"ok": true,
@@ -737,7 +757,7 @@ def phase_resnet(ck, images) -> dict:
     with torch.no_grad():
         ck.reset_counts()
         cep.reset_counts()
-        logits = net(x8)
+        logits = step_by_step(net, x8)
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
         k1_on_tensor_cores("ResNet-18", ck.VARIANTS)
@@ -899,10 +919,68 @@ def k1_on_tensor_cores(label: str, variants: dict) -> None:
         raise AssertionError(f"{label}: K1 launched its dp4a variant: {variants}")
 
 
+def step_by_step(net, x):
+    """``net``'s forward (an ``Int8FusedNet``) on ``x`` run step by step,
+    as a key's first forward runs it, whatever keys the net has seen: the
+    kernels' counters then count every launch of the forward (a CUDA
+    graph's replay calls no wrapper; :func:`replayed_kernels` reads its
+    kernels from a trace)."""
+    low = net.lowering(net.per_device_batch or x.shape[0])
+    return net._outputs(net._run_steps(low.steps, {net.input_name: x}, set()))
+
+
+EPILOGUE_KERNEL = r"\bconv_epilogue_rows_kernel\b"
+MM_VARIANTS = ("mma", "stream", "dp4a")
+MM_VARIANT = r"\bmm_(mma|stream|dp4a)_kernel\b"
+
+
+def replayed_kernels(fn):
+    """``fn()`` twice, then a third time under ``torch.profiler``, by when
+    every fused forward in it replays its key's CUDA graph (raises if one
+    captured or ran step by step): ``(output, device calls of each
+    hand-written kernel, K1's calls by variant, the epilogue's calls)``
+    in the trace of the third, the kernels named as the benchmark's trace
+    names them (``portbench.trace.kernel_of``)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dfq_tpu_torch.engine import int8_fused
+    from portbench.trace import KERNELS, kernel_of
+
+    with torch.no_grad():
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        before = dict(int8_fused.GRAPH_COUNTS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in int8_fused.GRAPH_COUNTS.items()}
+    if moved["captures"] or moved["eager"] or not moved["replays"]:
+        raise AssertionError(f"the traced call did not only replay: {moved}")
+    calls, variants, epilogue = dict.fromkeys(KERNELS, 0), dict.fromkeys(MM_VARIANTS, 0), 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if re.search(EPILOGUE_KERNEL, e.name):
+            epilogue += 1
+        k = kernel_of(e.name)
+        if k is not None:
+            calls[k] += 1
+        m = re.search(MM_VARIANT, e.name)
+        if m:
+            variants[m.group(1)] += 1
+    return out, calls, {"matmul_int8_requant": variants}, epilogue
+
+
 def launch_forward(ck, net, x):
-    """One forward of ``net`` with the counts reset just before it:
-    ``(output, launches, variants)``; K1 on the tensor cores only, and
-    the glue convs' epilogue launched as :func:`epilogue_launches` says."""
+    """One forward of ``net`` run step by step (:func:`step_by_step`) with
+    the counts reset just before it: ``(output, launches, variants)``; K1
+    on the tensor cores only, and the glue convs' epilogue launched as
+    :func:`epilogue_launches` says."""
     import torch
 
     from dfq_tpu_torch.ops import conv_epilogue as cep
@@ -910,7 +988,7 @@ def launch_forward(ck, net, x):
     with torch.no_grad():
         ck.reset_counts()
         cep.reset_counts()
-        out = net(x)
+        out = step_by_step(net, x)
         torch.cuda.synchronize()
     variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
     k1_on_tensor_cores(type(net).__name__, variants)
@@ -2005,26 +2083,25 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
     dp = {}
     for path, mesh in meshes.items():
         fwd = make_sharded_forward(None, residual, mesh, int8_model=model, engine="fused")
+        # a new replica: its first call runs step by step, captures and
+        # replays; the third only replays, and its trace counts the kernels
+        ck.reset_counts()
+        cep.reset_counts()
         with torch.no_grad():
-            ck.reset_counts()
-            cep.reset_counts()
-            out = fwd(x)
-            torch.cuda.synchronize()
-        launches = dict(ck.LAUNCHES)
-        variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
+            first = fwd(x)
+        out, launches, variants, epilogue = replayed_kernels(lambda: fwd(x))
         k1_on_tensor_cores(path, variants)
         n = mesh.size
         if launches != {k: v * n for k, v in per_shard.items()}:
-            raise AssertionError(f"{path}: launches {launches} over {n} shards")
-        EPILOGUE_SEEN[path] = cep.EPILOGUE_LAUNCHES
-        if (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS) != (
-                EPILOGUE_PINS["mobilenet_v2"] * n, 0):
-            raise AssertionError(f"{path}: conv epilogue launches and plain runs "
-                                 f"{(cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS)} over "
-                                 f"{n} shards")
+            raise AssertionError(f"{path}: traced kernel calls {launches} over {n} shards")
+        EPILOGUE_SEEN[path] = epilogue
+        if (epilogue, cep.EPILOGUE_PLAIN_CALLS) != (EPILOGUE_PINS["mobilenet_v2"] * n, 0):
+            raise AssertionError(f"{path}: traced conv epilogue calls and plain runs "
+                                 f"{(epilogue, cep.EPILOGUE_PLAIN_CALLS)} over {n} shards")
         if ck.PLAIN_CALLS != dict.fromkeys(wrappers, 0):
             raise AssertionError(f"plain versions ran through the wrappers: {ck.PLAIN_CALLS}")
-        equal_outputs(f"{path} vs the single forward", out.gather(), single)
+        equal_outputs(f"{path} vs the single forward", first.gather(), single)
+        equal_outputs(f"{path} replayed vs the single forward", out.gather(), single)
         counts = make_sharded_eval(None, residual, mesh, int8_model=model,
                                    engine="fused")(x, labels)
         if counts != want_counts:
@@ -2099,16 +2176,16 @@ def phase_parallel(ck, wrappers, max_err: dict, gen, main_path: dict, seg_path: 
     ck.reset_counts()
     cep.reset_counts()
     conf = seg_eval(xs, gt)
-    launches_by_path[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = dict(ck.LAUNCHES)
-    EPILOGUE_SEEN[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = cep.EPILOGUE_LAUNCHES
-    if (cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS) != (
-            EPILOGUE_PINS["deeplab_mnv2"] * SEG_SHARDS, 0):
-        raise AssertionError(f"sharded DeepLab conv epilogue launches and plain runs "
-                             f"{(cep.EPILOGUE_LAUNCHES, cep.EPILOGUE_PLAIN_CALLS)}")
-    if dict(ck.LAUNCHES) != {"matmul_int8_requant": 38 * SEG_SHARDS, "dw3x3_int8_requant": 0,
-                             "fused_block_int8": 0}:
-        raise AssertionError(f"sharded DeepLab launches {ck.LAUNCHES}")
-    if not np.array_equal(conf, ev.confusion_matrix):
+    again, seg_launches, _, epilogue = replayed_kernels(lambda: seg_eval(xs, gt))
+    launches_by_path[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = seg_launches
+    EPILOGUE_SEEN[f"deeplab_mnv2_sharded_{SEG_SHARDS}"] = epilogue
+    if (epilogue, cep.EPILOGUE_PLAIN_CALLS) != (EPILOGUE_PINS["deeplab_mnv2"] * SEG_SHARDS, 0):
+        raise AssertionError(f"sharded DeepLab traced conv epilogue calls and plain runs "
+                             f"{(epilogue, cep.EPILOGUE_PLAIN_CALLS)}")
+    if seg_launches != {"matmul_int8_requant": 38 * SEG_SHARDS, "dw3x3_int8_requant": 0,
+                        "fused_block_int8": 0}:
+        raise AssertionError(f"sharded DeepLab traced kernel calls {seg_launches}")
+    if not np.array_equal(conf, ev.confusion_matrix) or not np.array_equal(again, conf):
         raise AssertionError("sharded DeepLab confusion matrix != SegEvaluator's on the single "
                              "forward")
     detail["seg_confusion_sum"] = int(conf.sum())
@@ -2300,6 +2377,83 @@ AUTOTUNE_ROUNDS = 5
 # the CPU: image 13 of the seed's 16 lands on a tie that K1/K2 and K3 round
 # apart (the configurations part from the default there, in JAX too)
 POLICY_CPU_ROWS = slice(12, 14)
+
+
+def phase_graphs(ck, paths, gen) -> dict:
+    """20. The fused forward as a CUDA graph (module docstring), on
+    ``paths``: ``(path, model, residual f32 params, image size)``."""
+    import torch
+
+    from dfq_tpu_torch.engine import Int8FusedNet, int8_fused
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    detail = {}
+    for path, model, residual, size in paths:
+        batch = EPILOGUE_CELL_BATCH[path]
+        net = Int8FusedNet(model, device=DEVICE, params_f32=residual)
+        xa, xb = (torch.randn(batch, size, size, 3, device=DEVICE, generator=gen)
+                  for _ in range(2))
+        with torch.no_grad():
+            want_a, want_b = step_by_step(net, xa), step_by_step(net, xb)
+            counts = dict(int8_fused.GRAPH_COUNTS)
+            ck.reset_counts()
+            cep.reset_counts()
+            first = net(xa)
+            torch.cuda.synchronize()
+            eager = (dict(ck.LAUNCHES), cep.EPILOGUE_LAUNCHES)
+            reserved = [torch.cuda.memory_reserved()]
+            second = net(xb)
+            torch.cuda.synchronize()
+            reserved.append(torch.cuda.memory_reserved())
+            third = net(xa)
+            held = [o.clone() for o in outs(third)]
+            fourth = net(xb)
+            moved = {k: v - counts[k] for k, v in int8_fused.GRAPH_COUNTS.items()}
+            if moved != {"captures": 1, "replays": 3, "eager": 1} or len(net._graphs) != 1:
+                raise AssertionError(f"{path}: graph counters moved {moved}")
+            low = net.lowering(batch)
+            sites = ({k: sum(1 for _, kk, _ in low.kernel_sites if kk == k) for k in ck.LAUNCHES},
+                     len(low.epilogue_sites))
+            if eager != sites:
+                raise AssertionError(f"{path}: the first forward launched {eager}, the "
+                                     f"lowering has {sites}")
+            fifth, traced, _, epilogue = replayed_kernels(lambda: net(xa))
+            if (traced, epilogue) != sites:
+                raise AssertionError(f"{path}: a replay's trace shows {traced} and {epilogue} "
+                                     f"epilogue calls, the lowering has {sites}")
+            for label, got, want in (("first", first, want_a), ("second", second, want_b),
+                                     ("third", third, want_a), ("fourth", fourth, want_b),
+                                     ("traced", fifth, want_a),
+                                     ("held", tuple(held), outs(third))):
+                for o, w in zip(outs(got), outs(want)):
+                    equal_outputs(f"{path} b{batch} {label}", o, w)
+            ms = {"step_by_step": time_ms(lambda: step_by_step(net, xa), reps=5, rounds=3),
+                  "replayed": time_ms(lambda: net(xa), reps=5, rounds=3)}
+            host = {}
+            for label, fn in (("step_by_step", lambda: step_by_step(net, xa)),
+                              ("replayed", lambda: net(xa))):
+                per = []
+                for _ in range(6):  # each call issued onto an idle device
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    per.append((time.perf_counter() - t0) * 1e3)
+                host[label] = float(np.median(per[1:]))
+            torch.cuda.synchronize()
+        detail[path] = {"batch": batch, "ms": ms, "host_ms": host, "launches": eager[0],
+                        "epilogue_launches": eager[1], "replay_traced": traced,
+                        "replay_traced_epilogue": epilogue, "reserved_bytes": reserved}
+        print(f"{path} b{batch} as a CUDA graph: replays bit-equal to the step-by-step "
+              f"forward; a replay's trace shows {traced} and {epilogue} epilogue calls, one a "
+              f"site of the lowering, as the first forward launched; ms a forward back to "
+              f"back {ms}, host ms {host}; reserved {reserved[0] / 2**30:.3f} -> "
+              f"{reserved[1] / 2**30:.3f} GiB at the capture", flush=True)
+        del net, first, second, third, fourth, fifth, held, want_a, want_b
+        torch.cuda.empty_cache()
+    return detail
 
 
 def phase_policies(ck, wrappers, max_err: dict, gen, paths, card: str) -> dict:
@@ -2558,7 +2712,7 @@ def main() -> int:
     with torch.no_grad():
         ck.reset_counts()
         cep.reset_counts()
-        logits = net(x8)
+        logits = step_by_step(net, x8)
         torch.cuda.synchronize()
         launches = dict(ck.LAUNCHES)
         variants = {k: dict(v) for k, v in ck.VARIANTS.items()}
@@ -2849,6 +3003,14 @@ def main() -> int:
         ("deeplab_mnv2", seg["prep"], seg["model"], seg["net"], SEG_SIZE, (SEG_BATCH,),
          seg["images"], slice(0, 1))], card)
     detail["policies"] = pol["detail"]
+
+    # 20. the fused forward as a CUDA graph
+    detail["graphs"] = phase_graphs(ck, [
+        (path, p["model"], {k: v for k, v in p["prep"].params.items()
+                            if k not in p["model"].layers}, size)
+        for path, p, size in (("mobilenet_v2", {"model": model, "prep": prep}, SIZE),
+                              ("resnet18", r18, SIZE), ("ssd_lite", ssd, SSD_SIZE),
+                              ("deeplab_mnv2", seg, SEG_SIZE))], gen)
     ck.reset_counts()
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
 

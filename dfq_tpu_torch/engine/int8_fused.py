@@ -62,8 +62,30 @@ conversion of the glue); ``python3 -m portbench.spans`` sums device time
 and idle by them. The ranges are FUNCTION-scope profiler ranges, so each
 device op is tied to them through its launch's correlation and none takes
 a device annotation from a caller's ``record_function``. Always on:
-:attr:`Int8FusedNet.host`, the forward's calls and host seconds, and
-:data:`FALLBACK_BYTES`, the bytes an image of each f32 fallback step.
+:attr:`Int8FusedNet.host`, the forward's calls and host seconds,
+:data:`FALLBACK_BYTES`, the bytes an image of each f32 fallback step, and
+:data:`GRAPH_COUNTS`, the forwards by how they ran.
+
+On CUDA the forward replays a CUDA graph once it has seen an input key
+twice (:func:`graph_key`: the input's shape, strides, dtype and device,
+and the resolved policy). The first forward at a key runs step by step;
+the second captures the steps up to the first that writes a net output
+(:attr:`Lowering.cut`), the prefix, into a graph on a side stream, and it
+and every later forward at the key copy the input into the graph's
+static input, replay it, and run the suffix (MobileNetV2's classifier,
+SSD-Lite's box concat and class softmax, DeepLab's final resize) step by
+step on the boundary values the net keeps, so each call returns tensors
+of its own. A net's graphs share one memory pool and replay one at a
+time: a lock holds from the input copy until the suffix is issued, and
+the caller's stream waits for the previous replay's suffix. A CPU net,
+``plain_kernels=True`` and a call while the current stream is capturing
+run step by step. The kernels' launch counters count their wrappers'
+calls, which a replay does not make: a replayed forward adds only its
+suffix's, and the capturing forward its prefix's twice (the run before
+the capture and the capture) and its suffix's. A trace shows the kernels
+a replay runs, one a site of the lowering. While a profiler runs, a
+replay opens one range, ``int8_fused/graph``, and only the suffix's steps
+open theirs.
 
 The int8 tensor carried on an edge uses the CONSUMER's site quantization
 params (:func:`_consumer_plan`). The f32 glue mirrors the forms XLA
@@ -118,12 +140,22 @@ Grid = Tuple[float, int]
 STEP_KINDS = ("k1", "k2", "k3", "conv", "act", "add", "mean", "spatial", "concat",
               "fallback", "passthrough")
 PRODUCT, REQUANT, EPILOGUE = "int8_fused/product", "int8_fused/requant", "int8_fused/epilogue"
+GRAPH = "int8_fused/graph"
 _NO_RANGE = contextlib.nullcontext()
 
 # node -> (op, bytes an image of its f32 output) of every f32 fallback
 # step, as the last forward that ran it wrote them: read from shapes on
 # the host, with no sync; one plain dict store a step
 FALLBACK_BYTES: Dict[str, Tuple[str, int]] = {}
+
+# the forwards of every net by how they ran: "eager" step by step,
+# "replays" from a CUDA graph (the capturing forward too); "captures" the
+# graphs captured. One plain dict add a forward, no sync
+GRAPH_COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
+
+# ops whose output may be their input or a view of it: a net output made
+# by one is handed out from its producer's memory
+_VIEW_OPS = {"bn", "identity", "dropout", "reshape", "permute_nchw"}
 
 
 def _phase(spans: bool, name: str):
@@ -546,13 +578,38 @@ class Lowering:
     sites they launch, the exact int8 products of the other lowered
     layers, and the glue ``conv`` steps as ``(node, product, epilogue)``:
     the route (``xq -> acc``) and the packed
-    :class:`~dfq_tpu_torch.ops.conv_epilogue.ConvEpilogue` of each."""
+    :class:`~dfq_tpu_torch.ops.conv_epilogue.ConvEpilogue` of each.
+
+    ``steps[:cut]`` is the prefix a CUDA graph holds, ``steps[cut:]`` the
+    suffix run after its replay: from the first step that writes a net
+    output, or the step whose value such an output passes on or views.
+    ``suffix_reads`` names the values the suffix may read."""
 
     policy: Policy
     steps: List[Tuple[str, str, Step]]
     kernel_sites: List[Tuple[str, str, Any]]
     products: Dict[str, Any]
     epilogue_sites: List[Tuple[str, Acc, Any]] = dataclasses.field(default_factory=list)
+    cut: int = 0
+    suffix_reads: frozenset = frozenset()
+
+
+def graph_key(x: torch.Tensor, policy: Policy) -> Tuple:
+    """What a forward's CUDA graph is captured for: the input's shape,
+    strides, dtype and device, and the resolved policy."""
+    return tuple(x.shape), x.stride(), x.dtype, x.device, policy
+
+
+@dataclasses.dataclass
+class Captured:
+    """One key's graph of a lowering's prefix: ``graph.replay()`` runs it
+    on ``x``, its static input; ``env`` holds the prefix's values that the
+    suffix reads, ``done`` the nodes the prefix fused away."""
+
+    graph: Any
+    x: torch.Tensor
+    env: Dict[str, Any]
+    done: frozenset
 
 
 class Int8FusedNet(nn.Module):
@@ -614,9 +671,10 @@ class Int8FusedNet(nn.Module):
     static options pick (a dense-diagonal or s2d conv falls back to its
     plain product where the map's height fails the gate, as in the JAX
     engine). ``host`` (:class:`HostTime`) sums the forwards and their host
-    seconds; the forward makes no host sync, so where its input's device
-    work is done when it is called, that is the host time spent issuing
-    it.
+    seconds: step by step, or the input copy, the replay and the suffix
+    (module docstring). Only a capture syncs with the device, so where a
+    forward's input's device work is done when it is called, that is the
+    host time spent issuing it.
     """
 
     def __init__(self, model: Int8Model, device=None, plain_kernels: bool = False,
@@ -664,6 +722,11 @@ class Int8FusedNet(nn.Module):
         self._packed: Dict[Tuple[str, str], Any] = {}
         self._lowerings: Dict[Policy, Lowering] = {}
         self.host = HostTime()
+        # CUDA graphs by graph_key, the keys seen, and what replays share
+        self._graphs: Dict[Tuple, Captured] = {}
+        self._seen: set = set()
+        self._graph_lock = threading.Lock()
+        self._pool = self._capture_stream = self._suffix_done = None
         self._use(self.lowering(per_device_batch or 2))
 
     def policy(self, batch: int) -> Policy:
@@ -687,10 +750,24 @@ class Int8FusedNet(nn.Module):
         # grid of every node's output as this engine produces it (None:
         # f32); fixed by the plan, so every decision below is static
         self._grids: Dict[str, Optional[Grid]] = {self.input_name: None}
-        for node in self.model.graph:
+        graph = self.model.graph
+        for node in graph:
             if node.op != "input":
                 self._low.steps.append((node.name, *self._build(node)))
-        return self._low
+        index = {name: i for i, (name, _, _) in enumerate(self._low.steps)}
+
+        def made_at(name):
+            while graph[name].op in _VIEW_OPS and graph[name].inputs[0] in index:
+                name = graph[name].inputs[0]
+            return index[name]
+
+        low = self._low
+        low.cut = min((made_at(o) for o in self.outputs if o in index),
+                      default=len(low.steps))
+        low.suffix_reads = frozenset(
+            {i for name, _, _ in low.steps[low.cut:] for i in graph[name].inputs}
+            | set(self.outputs))
+        return low
 
     # -- packing ----------------------------------------------------------
     def _bias(self, layer) -> np.ndarray:
@@ -1151,13 +1228,36 @@ class Int8FusedNet(nn.Module):
         that runs opens its range (module docstring)."""
         t0 = time.perf_counter()
         low = self._use(self.lowering(per_device_batch or self.per_device_batch or x.shape[0]))
-        env: Dict[str, Any] = {self.input_name: x}
-        done: set = set()
+        g = None
+        if self._graphable(x, low):
+            key = graph_key(x, low.policy)
+            with self._graph_lock:
+                g = self._graphs.get(key)
+                if g is None and key in self._seen:
+                    g = self._graphs[key] = self._capture(low, x)
+                    GRAPH_COUNTS["captures"] += 1
+                self._seen.add(key)
+                if g is not None:
+                    out = self._replay(low, g, x)
+        if g is None:
+            GRAPH_COUNTS["eager"] += 1
+            out = self._outputs(self._run_steps(low.steps, {self.input_name: x}, set()))
+        self.host.add(time.perf_counter() - t0)
+        return out
+
+    def _graphable(self, x: torch.Tensor, low: Lowering) -> bool:
+        """Whether a forward on ``x`` may capture or replay a CUDA graph."""
+        return (x.device.type == "cuda" and not self.plain_kernels and low.cut > 0
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _run_steps(self, steps, env: Dict[str, Any], done: set) -> Dict[str, Any]:
+        """Run ``steps`` on ``env`` (node -> value), skipping what an earlier
+        step fused away (``done``); returns ``env``."""
         # set while any torch profiler runs; _profiler_enabled() reads the
         # calling thread's state, which profile_all_threads leaves unset
         spans = _autograd_profiler._is_profiler_enabled
         with highest_precision():
-            for name, kind, step in low.steps:
+            for name, kind, step in steps:
                 if name in done:
                     continue
                 if spans:
@@ -1165,12 +1265,54 @@ class Int8FusedNet(nn.Module):
                         step(env, done, True)
                 else:
                     step(env, done, False)
+        return env
+
+    def _outputs(self, env: Dict[str, Any]):
         outs = []
         for o in self.outputs:
             v = env[o]
             outs.append(v.dequant() if isinstance(v, QTensor) else v)
-        self.host.add(time.perf_counter() - t0)
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def _capture(self, low: Lowering, x: torch.Tensor) -> Captured:
+        """``low``'s prefix at ``x``'s key, captured into a CUDA graph on
+        the net's side stream and memory pool (under ``_graph_lock``),
+        after one run of it on that stream from this thread, which makes
+        the thread's library handles and the stream's workspaces outside
+        the capture."""
+        dev = x.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(dev)
+            self._suffix_done = torch.cuda.Event()
+        side = self._capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run_steps(low.steps[:low.cut], {self.input_name: x}, set())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        static = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        done: set = set()
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
+            env = self._run_steps(low.steps[:low.cut], {self.input_name: static}, done)
+        env = {k: env[k] for k in low.suffix_reads if k in env}
+        return Captured(graph, static, env, frozenset(done))
+
+    def _replay(self, low: Lowering, g: Captured, x: torch.Tensor):
+        """One forward from ``g`` (under ``_graph_lock``): copy ``x`` in,
+        replay, then run the suffix on the boundary values."""
+        stream = torch.cuda.current_stream(x.device)
+        stream.wait_event(self._suffix_done)
+        with _phase(_autograd_profiler._is_profiler_enabled, GRAPH):
+            g.x.copy_(x)
+            g.graph.replay()
+        env = dict(g.env)
+        env[self.input_name] = x
+        out = self._outputs(self._run_steps(low.steps[low.cut:], env, set(g.done)))
+        self._suffix_done.record(stream)
+        GRAPH_COUNTS["replays"] += 1
+        return out
 
 
 def execute_int8_fused(model: Int8Model, params_f32, x: torch.Tensor, device=None,

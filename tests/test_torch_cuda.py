@@ -29,7 +29,14 @@ DeepLab's shapes, and the glue convs' epilogue kernel
 (``ops/conv_epilogue.py``) bit-equal to its plain version in each of its
 variants, on the current stream and in a CUDA graph, and at every glue
 conv site of the four benchmark cells' configurations, one launch a glue
-``conv`` step.
+``conv`` step, and the fused forward replayed as a CUDA graph on those
+four configurations at b8, b3 and the cell's batch (bit-equal to the
+step-by-step forward, a result untouched by a later call, the wrapper
+launches of the first forward one a site and of a replay its suffix's),
+from two threads on two streams, captured on a thread new to the net and
+beside another net's forwards on a second thread, and under a profiler
+on the four at the cell's batch (each kernel of a replay traced, one a
+site).
 """
 
 import numpy as np
@@ -796,8 +803,9 @@ def test_fused_block_mma_variant_at_the_mobilenet_v1_c2_1024_block(dev, N):
 @pytest.mark.parametrize("n_shards", [3, 4])
 def test_sharded_fused_forward_on_one_card(dev, n_shards):
     """MobileNetV2 96x96 b12 split over ``n_shards`` shards on the card:
-    logits bit-equal to the single forward, 11 / 5 / 12 launches a shard,
-    the counters equal."""
+    logits bit-equal to the single forward (on the first call, run step
+    by step, captured and replayed, and on a call that only replays), and
+    11 / 5 / 12 kernel calls a shard in a trace of the replaying call."""
     from dfq_tpu_torch.engine import Int8FusedNet, lower_int8
     from dfq_tpu_torch.models import init_params, mobilenet_v2
     from dfq_tpu_torch.parallel import data_mesh, make_sharded_eval, make_sharded_forward
@@ -816,11 +824,13 @@ def test_sharded_fused_forward_on_one_card(dev, n_shards):
     labels[::3] = (labels[::3] + 1) % 1000
     mesh = data_mesh(devices=[dev] * n_shards)
     fwd = make_sharded_forward(None, residual, mesh, int8_model=model, engine="fused")
-    ck.reset_counts()
-    out = fwd(x)
-    torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"matmul_int8_requant": 11 * n_shards,
-                           "dw3x3_int8_requant": 5 * n_shards, "fused_block_int8": 12 * n_shards}
+    first = fwd(x)
+    fwd(x)  # by now the one replica has replayed its key's graph
+    out, calls, _ = _traced_kernels(lambda: fwd(x))
+    assert {k: calls[k] for k in ck.LAUNCHES} == {
+        "matmul_int8_requant": 11 * n_shards, "dw3x3_int8_requant": 5 * n_shards,
+        "fused_block_int8": 12 * n_shards}
+    _equal(first.gather(), single)
     assert [s.shape[0] for s in out.shards] == [12 // n_shards] * n_shards
     _equal(out.gather(), single)
     run = make_sharded_eval(None, residual, mesh, int8_model=model, engine="fused")
@@ -995,3 +1005,278 @@ def test_conv_epilogue_at_every_glue_conv_site(dev, name, monkeypatch):
     for o, w in zip(out if isinstance(out, tuple) else (out,),
                     want if isinstance(want, tuple) else (want,)):
         _equal(o, w)
+
+
+# -- the forward as a CUDA graph (engine/int8_fused.py) ---------------------------
+
+# the benchmark cells' batches of the four configurations
+_CELL_BATCH = {"mobilenet_v2_224": 128, "resnet18_224": 128, "ssdlite_mobilenet_v2_300": 128,
+               "deeplab_mobilenet_v2_513": 32}
+_LOWERED: dict = {}
+
+
+def _lowered(name):
+    """``(model, residual f32 params, image size)`` of a cell's configuration
+    (the flagship DFQ config), built once."""
+    if name not in _LOWERED:
+        from dfq_tpu_torch import models
+        from dfq_tpu_torch.engine import lower_int8
+        from dfq_tpu_torch.pipeline import QuantConfig, prepare
+
+        builder, kwargs, flags, size, _ = _EPI_MODELS[name]
+        g = getattr(models, builder)(**kwargs)
+        prep = prepare(g, models.init_params(g, seed=0, bn_stats="random"),
+                       QuantConfig(quantize=True, relu=True, equalize=True, absorption=True,
+                                   correction=True, bits_bias=16, **flags))
+        model = lower_int8(prep)
+        _LOWERED[name] = (model, {k: v for k, v in prep.params.items()
+                                  if k not in model.layers}, size)
+    return _LOWERED[name]
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _step_by_step(net, x):
+    """The forward run step by step, as a key's first forward runs it."""
+    low = net.lowering(x.shape[0])
+    return net._outputs(net._run_steps(low.steps, {net.input_name: x}, set()))
+
+
+def _suffix_sites(net, batch):
+    """``(kernel launches by kernel, epilogue launches)`` of the steps a
+    replay runs after its graph (the lowering's suffix)."""
+    low = net.lowering(batch)
+    suffix = {n for n, _, _ in low.steps[low.cut:]}
+    return ({k: sum(1 for n, kk, _ in low.kernel_sites if kk == k and n in suffix)
+             for k in ck.LAUNCHES},
+            sum(1 for n, _, _ in low.epilogue_sites if n in suffix))
+
+
+def _counted(fn):
+    """``fn()`` with the kernels' counters reset before it and the device
+    synced after: ``(output, launches by kernel, epilogue launches)``."""
+    from dfq_tpu_torch.ops import conv_epilogue as cep
+
+    ck.reset_counts()
+    cep.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ck.LAUNCHES), cep.EPILOGUE_LAUNCHES
+
+
+def _traced_kernels(fn):
+    """``fn()`` under ``torch.profiler``: ``(output, device calls of each
+    hand-written kernel, and of the epilogue's as "conv_epilogue")``, as
+    the benchmark's trace names them."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import kernel_of
+
+    epilogue = re.compile(r"\bconv_epilogue_rows_kernel\b")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    calls = dict.fromkeys([*ck.LAUNCHES, "conv_epilogue"], 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = "conv_epilogue" if epilogue.search(e.name) else kernel_of(e.name)
+            if k is not None:
+                calls[k] += 1
+    return out, calls, prof
+
+
+@pytest.mark.parametrize("batch", ["b8", "b3", "cell"])
+@pytest.mark.parametrize("name", sorted(_EPI_MODELS))
+def test_graph_replay_equals_the_step_by_step_forward(dev, name, batch):
+    """A key's first forward runs step by step, its second captures and
+    replays, later ones replay: every replayed output bit-equal to the
+    step-by-step forward on the same images, a result unchanged after a
+    later call on other images; the first forward's kernel launches (by
+    kernel, and the epilogue's) one a site of the lowering, and a
+    replayed forward's only those of its suffix (the kernels' counters
+    count wrapper calls, and a replay makes none)."""
+    from dfq_tpu_torch.engine import Int8FusedNet, int8_fused
+
+    model, residual, size = _lowered(name)
+    n = {"b8": 8, "b3": 3, "cell": _CELL_BATCH[name]}[batch]
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    rng = np.random.default_rng(n + size)
+    xa, xb = (_t(rng.normal(0, 1, (n, size, size, 3)).astype(np.float32), dev)
+              for _ in range(2))
+    counts = dict(int8_fused.GRAPH_COUNTS)
+    with torch.no_grad():
+        want_a, want_b = _step_by_step(net, xa), _step_by_step(net, xb)
+        first, *eager = _counted(lambda: net(xa))
+        second = net(xb)
+        assert len(net._graphs) == 1
+        third, *replayed = _counted(lambda: net(xa))
+        held = [o.clone() for o in _outs(third)]
+        fourth = net(xb)
+    assert {k: v - counts[k] for k, v in int8_fused.GRAPH_COUNTS.items()} == {
+        "captures": 1, "replays": 3, "eager": 1}
+    low = net.lowering(n)
+    assert eager == [{k: sum(1 for _, kk, _ in low.kernel_sites if kk == k) for k in ck.LAUNCHES},
+                     len(low.epilogue_sites)]
+    assert tuple(replayed) == _suffix_sites(net, n)
+    for got, want in ((first, want_a), (second, want_b), (third, want_a), (fourth, want_b)):
+        for o, w in zip(_outs(got), _outs(want)):
+            _equal(o, w)
+    for o, h in zip(_outs(third), held):
+        _equal(o, h)
+
+
+def test_graph_capture_on_a_thread_new_to_the_net(dev):
+    """A key's first forward on this thread, its second, the capture, on
+    a new thread, as the serving pool's threads take turns: the capture
+    makes that thread's library handles before it starts, and the replay
+    is bit-equal to the step-by-step forward."""
+    import threading
+
+    from dfq_tpu_torch.engine import Int8FusedNet
+
+    model, residual, size = _lowered("mobilenet_v2_224")
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    x = _t(np.random.default_rng(8).normal(0, 1, (8, size, size, 3)).astype(np.float32), dev)
+    got, errors = [], []
+
+    def second():
+        try:
+            with torch.no_grad():
+                got.append(net(x))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    with torch.no_grad():
+        want = _step_by_step(net, x)
+        net(x)
+    t = threading.Thread(target=second)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert len(net._graphs) == 1
+    _equal(got[0], want)
+
+
+def test_graph_replay_from_two_threads_on_two_streams(dev):
+    """Two threads on their own streams share one net whose key has a
+    graph: each gets its own images' logits, bit-equal to the
+    step-by-step forward's."""
+    import threading
+
+    from dfq_tpu_torch.engine import Int8FusedNet
+
+    model, residual, size = _lowered("mobilenet_v2_224")
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    rng = np.random.default_rng(5)
+    xs = [_t(rng.normal(0, 1, (16, size, size, 3)).astype(np.float32), dev) for _ in range(4)]
+    with torch.no_grad():
+        wants = [_step_by_step(net, x) for x in xs]
+        net(xs[0])
+        net(xs[0])
+    torch.cuda.synchronize()
+    got = {0: [], 1: []}
+    errors = []
+
+    def worker(i):
+        try:
+            stream = torch.cuda.Stream(dev)
+            with torch.no_grad(), torch.cuda.stream(stream):
+                for r in range(12):
+                    k = (2 * i + r) % 4
+                    got[i].append((k, net(xs[k])))
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(net._graphs) == 1
+    for i in (0, 1):
+        assert len(got[i]) == 12
+        for k, out in got[i]:
+            _equal(out, wants[k])
+
+
+@pytest.mark.parametrize("name", sorted(_EPI_MODELS))
+def test_profiler_sees_each_kernel_of_a_replay(dev, name):
+    """Under ``torch.profiler``, at the cell's batch, the kernels three
+    replays run show as device operations, each kernel's (the epilogue's
+    too) as many as the lowering's sites times the replays (the
+    benchmark's roofline reads them so), inside one ``int8_fused/graph``
+    range a forward."""
+    from dfq_tpu_torch.engine import Int8FusedNet, int8_fused
+
+    model, residual, size = _lowered(name)
+    n = _CELL_BATCH[name]
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    x = _t(np.random.default_rng(9).normal(0, 1, (n, size, size, 3)).astype(np.float32), dev)
+    with torch.no_grad():
+        net(x)
+        net(x)
+        torch.cuda.synchronize()
+        counts = dict(int8_fused.GRAPH_COUNTS)
+        _, calls, prof = _traced_kernels(lambda: [net(x) for _ in range(3)])
+    assert {k: v - counts[k] for k, v in int8_fused.GRAPH_COUNTS.items()} == {
+        "captures": 0, "replays": 3, "eager": 0}
+    ranges = sum(1 for e in prof.events() if e.name == int8_fused.GRAPH
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+    assert ranges == 3
+    low = net.lowering(n)
+    assert calls == {**{k: 3 * sum(1 for _, kk, _ in low.kernel_sites if kk == k)
+                        for k in ck.LAUNCHES},
+                     "conv_epilogue": 3 * len(low.epilogue_sites)}
+
+
+def test_graph_capture_beside_an_eager_forward_on_another_thread(dev):
+    """One net captures and replays its key while a second thread runs
+    another net step by step on its own stream, launching throughout the
+    capture: both get their step-by-step answers, bit for bit, and the
+    second thread's forwards stay out of the graph."""
+    import threading
+
+    from dfq_tpu_torch.engine import Int8FusedNet
+
+    model, residual, size = _lowered("mobilenet_v2_224")
+    net = Int8FusedNet(model, device=dev, params_f32=residual)
+    other = Int8FusedNet(model, device=dev, params_f32=residual)
+    rng = np.random.default_rng(11)
+    xs = [_t(rng.normal(0, 1, (16, size, size, 3)).astype(np.float32), dev) for _ in range(3)]
+    with torch.no_grad():
+        wants = [_step_by_step(net, x) for x in xs]
+    got, errors, stop = [], [], threading.Event()
+
+    def eager_loop():
+        try:
+            stream = torch.cuda.Stream(dev)
+            with torch.no_grad(), torch.cuda.stream(stream):
+                while not stop.is_set():
+                    got.append(_step_by_step(other, xs[2]))
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=eager_loop)
+    t.start()
+    try:
+        with torch.no_grad():
+            mine = [net(xs[i % 2]) for i in range(6)]  # eager, capture, 4 replays
+            torch.cuda.synchronize()
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors
+    assert len(net._graphs) == 1 and other._graphs == {}
+    assert got
+    for i, out in enumerate(mine):
+        _equal(out, wants[i % 2])
+    for out in got:
+        _equal(out, wants[2])
